@@ -1,6 +1,6 @@
-"""Long-horizon closed-loop stability on real TPU: 256 envs x 30 s sim.
+"""Long-horizon closed-loop stability: 256 envs x 30 s sim.
 
-The f32 Pallas kernel drives the full walking loop (100 Hz MPC, 1 kHz
+The f32 solver drives the full walking loop (100 Hz MPC, 1 kHz
 control + SRBD plant) for 30,000 ticks in 30 x 1 s dispatches; reports the
 fraction of envs upright (height within 0.15 m of command, |rp| < 0.5 rad)
 and tracking stats along the way. Commands are domain-randomized per env
@@ -8,12 +8,12 @@ and tracking stats along the way. Commands are domain-randomized per env
 phases) — the RL-training batch shape.
 
 Flags: --yaw (omnidirectional contact frame), --solver NAME (default
-pallas_ric, the round-2 run; round 3 adds the pallas_hybrid rerun that
-rescued the 1/256 divergence — BENCH.md), --robot NAME (round 4: "T1" /
-"T1-newton" run the 0.62 m, f_max=1450 N T1 configuration and append to
-results/t1_tpu_rollout.jsonl instead), --obs-ik newton (exact-IK encoder
-stand-in for plain T1; see closed_loop_sim.simulate). Appends
-results/ab_stability.jsonl.
+"auto"), --robot NAME ("T1" / "T1-newton" run the 0.62 m,
+f_max=1450 N T1 configuration and append to results/t1_rollout.jsonl
+instead), --obs-ik newton (exact-IK encoder stand-in for plain T1; see
+closed_loop_sim.simulate), --iters N (Newton iterations). Appends
+results/ab_stability.jsonl; every record file starts with the device it
+ran on.
 """
 # Runnable from anywhere: put the repo root (one level up) on sys.path
 # so `import biped_pympc_tpu` and `import bench_common` both resolve.
@@ -35,23 +35,23 @@ enable_compilation_cache()
 batch = 256
 import sys as _sys
 frame = "yaw" if "--yaw" in _sys.argv else "world"
-solver = "pallas_ric"
+solver = "auto"
 if "--solver" in _sys.argv:
     solver = _sys.argv[_sys.argv.index("--solver") + 1]
 robot = "HECTOR"
-if "--robot" in _sys.argv:  # round-4: T1 parity with HECTOR's 30 s evidence
+if "--robot" in _sys.argv:
     robot = _sys.argv[_sys.argv.index("--robot") + 1]
 obs_ik = "robot"
 if "--obs-ik" in _sys.argv:
     obs_ik = _sys.argv[_sys.argv.index("--obs-ik") + 1]
 iters = 20
-if "--iters" in _sys.argv:  # round 5: reduced-iteration closed-loop study
+if "--iters" in _sys.argv:  # reduced-iteration closed-loop study
     iters = int(_sys.argv[_sys.argv.index("--iters") + 1])
 height = 0.55 if robot == "HECTOR" else 0.62
 f_max = 500.0 if robot == "HECTOR" else 1450.0
-# Round 5: T1 runs its tuned configuration (real foot levers via
-# RobotSpec.lt/lh + the ab_t1_tune.py-measured gait: ssp=9, dsp=2,
-# swing 0.12) unless --reference-constants asks for the round-4 setup.
+# T1 runs its tuned configuration (real foot levers via RobotSpec.lt/lh +
+# the ab_t1_tune.py-measured gait: ssp=9, dsp=2, swing 0.12) unless
+# --reference-constants asks for the reference's HECTOR constants.
 if robot != "HECTOR" and "--reference-constants" not in _sys.argv:
     from biped_pympc_tpu.config import recommended_conf
     cconf, mpc_kw = recommended_conf(robot)  # the documented usage path
@@ -63,8 +63,8 @@ else:
                   f_max=f_max, newton_iterations=iters)
 core = BipedControllerCore(cconf, MPCConf(**mpc_kw), gait_id=2)
 from bench_common import make_emitter
-emit = make_emitter("ab_stability" if robot == "HECTOR" else "t1_tpu_rollout",
-                    {"frame": frame, "solver": solver, "robot": robot,
+emit = make_emitter("ab_stability" if robot == "HECTOR" else "t1_rollout",
+                    {"frame": frame, "solver": core.solver, "robot": robot,
                      "obs_ik": obs_ik, "iters": iters})
 rollout, cycles = make_rollout(core, 1.0, obs_ik=obs_ik)
 rollout = jax.jit(rollout)
@@ -81,7 +81,7 @@ state = core.set_command(state, jnp.asarray(twist),
 state = state._replace(
     gait_phase=jnp.asarray(rng.uniform(0, 1, batch).astype(np.float32)))
 if "--reference-constants" in _sys.argv:
-    # Round-4 replication mode: the reference's hardcoded HECTOR levers.
+    # Replication mode: the reference's hardcoded HECTOR levers.
     state = state._replace(lt=jnp.full((batch,), 0.07, jnp.float32),
                            lh=jnp.full((batch,), 0.04, jnp.float32))
     emit({"note": "reference-constants mode: lt/lh forced to 0.07/0.04"})

@@ -1,7 +1,7 @@
-"""T1 tuning sweep on real TPU: one compiled rollout, grid as per-env data.
+"""T1 tuning sweep: one compiled rollout, grid as per-env data.
 
-Round-5 closure of the T1 quality gap (VERDICT item 1). Every knob the
-round-4 analysis named as the limiter — toe/heel lever arms, gait timing
+Closes the T1 quality gap. Every knob named as the limiter — toe/heel
+lever arms, gait timing
 (ssp/dsp), swing height — is PER-ENV DATA in this framework (the reference
 bakes all of them into its compiled CUDA kernel), so the whole tuning grid
 runs as one batched rollout: n_cfg configs x n_seed randomized commands,
@@ -9,7 +9,8 @@ one compile, one dispatch per simulated second.
 
 Grid: levers {HECTOR 0.07/0.04, T1-URDF 0.1215/0.1015} x ssp {5,7,9} x
 dsp {0,2} x swing_height {0.08, 0.12} = 24 configs x 16 seeds = 384 envs,
-10 s sim each. Appends results/t1_tune.jsonl (one row per config).
+10 s sim each. Appends results/t1_tune.jsonl (one row per config, after a
+header naming the device).
 
 Usage: python bench/ab_t1_tune.py [--seconds 10] [--seeds 16]
 """
@@ -41,7 +42,7 @@ if "--seconds" in _sys.argv:
 n_seed = 16
 if "--seeds" in _sys.argv:
     n_seed = int(_sys.argv[_sys.argv.index("--seeds") + 1])
-solver = "pallas_ric_aug"
+solver = "auto"
 if "--solver" in _sys.argv:
     solver = _sys.argv[_sys.argv.index("--solver") + 1]
 
@@ -63,7 +64,7 @@ core = BipedControllerCore(
             verbose=False),
     gait_id=2,
 )
-emit = make_emitter("t1_tune", {"solver": solver, "seconds": seconds,
+emit = make_emitter("t1_tune", {"solver": core.solver, "seconds": seconds,
                                 "seeds": n_seed})
 
 rollout, cycles = make_rollout(core, 1.0)

@@ -1,9 +1,9 @@
-"""Stage-level timing of the 1 kHz rollout tick at batch 4096 (TPU).
+"""Stage-level timing of the 1 kHz rollout tick at batch 4096.
 
-Temporary measurement script. Times chained scans of: obs assembly (quat/
-rot/IK), controller ingest (FK/J/gait), low-level (swing/Raibert/Bezier/
-leg IK), and plant RK4 — each in isolation — to find where the 13 ms/tick
-goes.
+Times chained scans of: obs assembly (quat/rot/IK), controller ingest
+(FK/J/gait), low-level (swing/Raibert/Bezier/leg IK), and plant RK4 — each
+in isolation — to find where a rollout tick's time goes. Prints the device
+it ran on first.
 """
 # Runnable from anywhere: put the repo root (one level up) on sys.path
 # so `import biped_pympc_tpu` and `import bench_common` both resolve.
@@ -39,7 +39,10 @@ def main():
     chain = 100
 
     cfg = ControllerConf(ssp_durations=5, dsp_durations=0, swing_height=0.08)
-    core = BipedControllerCore(cfg, MPCConf(solver="pallas_ric"), gait_id=2)
+    from bench_common import device_info
+
+    print(json.dumps({"device": device_info()}), flush=True)
+    core = BipedControllerCore(cfg, MPCConf(), gait_id=2)
     robot = core.robot
     state, x, foot_w = tr.init_carry(core, batch, 0.3, 0.55)
 

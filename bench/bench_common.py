@@ -1,8 +1,9 @@
-"""Shared workload builder for the benchmark / measurement scripts.
+"""Shared helpers for the benchmark / measurement scripts.
 
 One definition of the walking-class stress-QP batch so `bench_sweep.py`,
-`ab_accuracy.py` and `ab_kpivot.py` always measure the same problem set
-(8 base variants with contact-chattering tables, tiled to the batch size).
+`ab_accuracy.py` and `chip_smoke.py` always measure the same problem set
+(8 base variants with contact-chattering tables, tiled to the batch size),
+and one record of the device every result was measured on.
 """
 
 import os as _os
@@ -16,6 +17,69 @@ if _ROOT not in _sys.path:
     _sys.path.insert(0, _ROOT)
 
 import numpy as np
+
+
+def card_info() -> str | None:
+    """`name, power.limit` of the first NVIDIA card as nvidia-smi reports
+    them, or None where there is no nvidia-smi."""
+    import shutil
+    import subprocess
+
+    if shutil.which("nvidia-smi") is None:
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0] if out else None
+
+
+def device_info() -> dict:
+    """The device a result was measured on, as JAX reports it, plus the
+    card's name and power limit (a capped card runs slower under load)."""
+    import jax
+
+    d = jax.devices()[0]
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices()), "card": card_info()}
+
+
+def make_converged_qp(dtype=None, seed: int = 0, contact=None,
+                      vx: float = 0.3, horizon: int = 10):
+    """One HECTOR double-support walking QP (single env) that 20 Newton
+    iterations solve to convergence — the solver tests' reference problem
+    (`tests/test_pdipm.py`)."""
+    import jax.numpy as jnp
+
+    from biped_pympc_tpu.models.srbd import SrbdLin
+    from biped_pympc_tpu.ops import qp as qps
+
+    dtype = dtype or jnp.float64
+    T = horizon
+    lin = SrbdLin(
+        rot_body=jnp.eye(3, dtype=dtype),
+        inertia_world=jnp.asarray(np.diag([0.5413, 0.52, 0.0691]), dtype=dtype),
+        body_pos=jnp.asarray([0.0, 0.0, 0.55], dtype=dtype),
+        foot_pos=jnp.asarray([[0.05, 0.08, 0.0], [0.05, -0.08, 0.0]],
+                             dtype=dtype),
+        mass=jnp.asarray(13.856, dtype=dtype),
+        residual_lin_accel=jnp.zeros(3, dtype=dtype),
+        residual_ang_accel=jnp.zeros(3, dtype=dtype),
+    )
+    rng = np.random.default_rng(seed)
+    x0 = jnp.asarray(rng.uniform(-0.05, 0.05, 12), dtype=dtype)
+    x0 = x0.at[5].add(0.5)
+    x_ref = jnp.zeros((T, 12), dtype=dtype).at[:, 5].set(0.55).at[:, 9].set(vx)
+    if contact is None:
+        contact = jnp.ones((T, 2), dtype=dtype)
+    q = jnp.asarray([150.0, 150, 250, 100, 100, 250, 1, 1, 5, 10, 10, 1],
+                    dtype=dtype)
+    r = jnp.full(12, 1e-5, dtype=dtype).at[6:].set(1e-4)
+    return qps.build_qp(
+        lin, x0, x_ref, jnp.asarray(contact, dtype=dtype),
+        jnp.asarray(0.025, dtype=dtype), jnp.asarray(1.0, dtype=dtype), q, r, T
+    )
 
 
 def make_qp_batch(batch: int, horizon: int = 10):
@@ -140,7 +204,7 @@ def make_qp_batch_randomized(batch: int, horizon: int = 10, seed: int = 0):
 
 
 def make_chained(solve_fn, chain):
-    """Chained-scan device-timing harness shared by the ab_* benchmarks.
+    """Chained-scan device-timing harness shared by the benchmarks.
 
     Chains `chain` dependent solves inside one jit (each step's x feeds a
     1e-12 perturbation of the next problem's f) so the measured wall time
@@ -168,9 +232,8 @@ def make_emitter(harness: str, params: dict | None = None,
     This is the reference's offline sweep-export role
     (`cusadi/run_benchmarks.py:91-96` saves `.mat` for the MATLAB plots) in
     a diffable, machine-readable form: each run appends one `{"run": ...}`
-    header (UTC timestamp + harness parameters) followed by its records, so
-    round-over-round regressions diff without parsing BENCH.md prose.
-    BENCH.md tables cite these artifacts.
+    header (UTC timestamp + harness parameters + device) followed by its
+    records, so runs diff without parsing prose.
     """
     import json
     import os
@@ -183,6 +246,7 @@ def make_emitter(harness: str, params: dict | None = None,
         "run": harness,
         "utc": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
         "params": dict(params or {}),
+        "device": device_info(),
     }
     # The file is opened and the run header written LAZILY on the first emit,
     # so a harness that crashes before producing any measurement leaves no
@@ -191,10 +255,11 @@ def make_emitter(harness: str, params: dict | None = None,
 
     def emit(obj: dict) -> None:
         line = json.dumps(obj)
-        print(line, flush=True)
         if state["f"] is None:
+            print(json.dumps(header), flush=True)
             state["f"] = open(path, "a")
             state["f"].write(json.dumps(header) + "\n")
+        print(line, flush=True)
         state["f"].write(line + "\n")
         state["f"].flush()
 

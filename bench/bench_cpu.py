@@ -2,7 +2,7 @@
 
 The role of the reference's `evaluate_serial_cpu.cpp` / `evaluate_parallel_cpu.cpp`
 harness (`/root/reference/biped_pympc/cusadi/src/benchmark_functions/`):
-measure per-env SRBD-MPC solve throughput on CPU to anchor the TPU speedup
+measure per-env SRBD-MPC solve throughput on CPU to anchor the GPU speedup
 numbers reported by bench.py. Prints one JSON line per method.
 """
 # Runnable from anywhere: put the repo root (one level up) on sys.path

@@ -3,19 +3,20 @@
 Role parity with the reference's benchmark harness
 (`/root/reference/biped_pympc/cusadi/run_benchmarks.py:10-96`), which sweeps
 batch 1..32768 over {cusadi kernel, torch.vmap, serial CPU, parallel CPU}.
-Here the methods are the TPU-native equivalents:
+Here the methods are the two f32 solver ends of the shipped algorithm
+(foot-split "ric_aug", one refinement step):
 
-  pallas_ric   - fused Pallas kernel, two-level condensed (shipped default)
-  pallas       - fused Pallas kernel, 26-wide Thomas sweep
-  xla          - pure-JAX vmapped solver, same algorithm ("ric"), XLA-lowered
-                 (the torch.vmap-analog interpreter path)
+  ric_aug        - pure-JAX vmapped solver, XLA-lowered (the torch.vmap
+                   analog)
+  fused_ric_aug  - the fused native kernel (`ops/pdipm_fused.py`; the
+                   cusadi-kernel analog)
 
 CPU serial / OpenMP baselines live in `bench_cpu.py` (C++,
 `native/srbd_mpc_cpu.cpp`) — run that separately on a CPU host.
 
 Prints one JSON line per (method, batch): ms per batched 20-iteration solve
-and 5-iteration-solve-units/s (the headline unit, see bench.py). Chained-scan
-timing amortizes the per-dispatch host round-trip.
+and 5-iteration-solve-units/s (the headline unit, see bench.py), with the
+device it ran on. Chained-scan timing amortizes the per-dispatch overhead.
 
 Usage: python bench_sweep.py [--batches 64,256,1024,4096] [--chain 10]
 """
@@ -28,7 +29,6 @@ _sys.path[:0] = [_os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
 
 
 import argparse
-import json
 import time
 
 import numpy as np
@@ -37,7 +37,7 @@ import numpy as np
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--batches", default="64,256,1024,4096")
-    p.add_argument("--methods", default="pallas_ric,pallas,xla")
+    p.add_argument("--methods", default="ric_aug,fused_ric_aug")
     p.add_argument("--chain", type=int, default=10)
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--horizon", type=int, default=10)
@@ -50,14 +50,13 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from biped_pympc_tpu.ops import pdipm, pdipm_pallas
-    from biped_pympc_tpu.utils.cache import enable_compilation_cache
-
-    enable_compilation_cache()
-
+    from ab_accuracy import solver_fns
     from bench_common import (
         make_emitter, make_qp_batch, make_qp_batch_randomized,
     )
+    from biped_pympc_tpu.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     emit = make_emitter("bench_sweep", vars(args))
 
@@ -81,72 +80,37 @@ def main():
             ts.append((time.perf_counter() - t0) / chain)
         return float(np.median(ts)), compile_s
 
-    methods = {
-        # Round-2 shipped default: robust augmented foot-split kernel.
-        "pallas_ricaug_split": lambda q: pdipm_pallas.solve(
-            q, pdipm.PdipmOptions(backend="ric_aug", refine_steps=1,
-                                  foot_split=True)),
-        # Speed mode (documented f32 stress tails).
-        "pallas_ric_split": lambda q: pdipm_pallas.solve(
-            q, pdipm.PdipmOptions(backend="ric", refine_steps=1,
-                                  foot_split=True)),
-        "pallas_ric": lambda q: pdipm_pallas.solve(
-            q, pdipm.PdipmOptions(backend="ric", refine_steps=1)),
-        # Round-3 finiteness-guaranteed speed mode (BENCH.md "hybrid
-        # flag"): fast foot-split everywhere + auto-budgeted augmented
-        # re-solve of the worst-criterion / non-finite envs.
-        "pallas_hybrid": lambda q: pdipm_pallas.solve_hybrid(
-            q, pdipm.PdipmOptions(backend="ric", refine_steps=1,
-                                  foot_split=True),
-            budget=0, flag_tol=1.0,
-            aug_opts=pdipm.PdipmOptions(backend="ric_aug", refine_steps=1,
-                                        foot_split=True)),
-        "pallas": lambda q: pdipm_pallas.solve(
-            q, pdipm.PdipmOptions(backend="tridiag", refine_steps=1)),
-        "xla": jax.vmap(lambda q: pdipm.solve(
-            q, pdipm.PdipmOptions(backend="ric", refine_steps=1))),
-    }
-    # Alias matching the MPCConf.solver spelling of the shipped default.
-    methods["pallas_ric_aug"] = methods["pallas_ricaug_split"]
+    methods = solver_fns(args.methods.split(","))
 
     for batch in [int(b) for b in args.batches.split(",")]:
         if args.randomized:
             qp = make_qp_batch_randomized(batch, horizon=args.horizon)
         else:
             qp = make_qp_batch(batch, horizon=args.horizon)
-        for name in args.methods.split(","):
-            try:
-                t, compile_s = timed_chain(
-                    qp, methods[name], args.chain, args.reps)
-                extra = {}
-                if args.randomized:
-                    # Solution-health stats for the domain-randomized run:
-                    # finite fraction + stance-force stats of u0.
-                    res = jax.jit(methods[name])(qp)
-                    u0 = np.asarray(res.x[:, 120:132])
-                    finite = np.isfinite(u0).all(axis=1)
-                    fz = u0[:, [2, 5]]
-                    extra = {
-                        "finite_frac": round(float(finite.mean()), 5),
-                        "fz_max_N": round(float(fz.max()), 1),
-                        "fz_p50_N": round(float(np.median(fz[fz > 1.0])), 1)
-                        if (fz > 1.0).any() else 0.0,
-                    }
-                emit({
-                    **extra,
-                    "method": name, "batch": batch,
-                    "horizon": args.horizon,
-                    "workload": "randomized" if args.randomized else "stress8",
-                    "ms_per_solve": round(1e3 * t, 3),
-                    "solve_units_per_sec": round(batch * 4 / t, 1),
-                    "compile_s": round(compile_s, 1),
-                    "device": str(jax.devices()[0]),
-                })
-            except Exception as e:  # pragma: no cover - runtime-specific
-                emit({
-                    "method": name, "batch": batch,
-                    "error": f"{type(e).__name__}",
-                })
+        for name, fn in methods.items():
+            t, compile_s = timed_chain(qp, fn, args.chain, args.reps)
+            extra = {}
+            if args.randomized:
+                # Solution-health stats for the domain-randomized run:
+                # finite fraction + stance-force stats of u0.
+                u0 = np.asarray(fn(qp).x[:, 120:132])
+                finite = np.isfinite(u0).all(axis=1)
+                fz = u0[:, [2, 5]]
+                extra = {
+                    "finite_frac": float(finite.mean()),
+                    "fz_max_N": float(fz.max()),
+                    "fz_p50_N": float(np.median(fz[fz > 1.0]))
+                    if (fz > 1.0).any() else 0.0,
+                }
+            emit({
+                **extra,
+                "method": name, "batch": batch,
+                "horizon": args.horizon,
+                "workload": "randomized" if args.randomized else "stress8",
+                "ms_per_solve": 1e3 * t,
+                "solve_units_per_sec": batch * 4 / t,
+                "compile_s": compile_s,
+            })
 
 
 if __name__ == "__main__":

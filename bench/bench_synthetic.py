@@ -4,17 +4,14 @@ The reference's CusADi is a *general* tool: any CasADi function tape ->
 one-thread-per-env CUDA kernel, benchmarked on synthetic functions of
 1e1..1e5 instructions over batch 1..32768
 (`/root/reference/biped_pympc/cusadi/run_benchmarks.py:10-96`, fns named
-`fn_1e1`..`fn_1e5`). The TPU-native answer to that role is JAX itself:
-an arbitrary elementwise instruction tape is a jitted pure function, XLA
-fuses it, vmap supplies the batch dimension. This harness measures that
+`fn_1e1`..`fn_1e5`). The JAX answer to that role is JAX itself: an
+arbitrary elementwise instruction tape is a jitted pure function, XLA
+fuses it, and the batch is one array axis. This harness measures that
 claim with the same experiment design:
 
   methods
-    xla     - jitted vmapped evaluation of the tape (the CusADi-kernel
-              analog: one fused TPU program, batch in lanes)
-    pallas  - the same tape inside ONE hand-written Pallas kernel, all
-              intermediates VMEM-resident (what CusADi's generated
-              straight-line kernel is to CUDA)
+    xla     - jitted batch-last evaluation of the tape (the CusADi-kernel
+              analog: one fused device program)
     cpu     - NumPy f64 serial evaluation (the reference's serial-CPU
               baseline, `evaluate_serial_cpu.cpp` role)
 
@@ -24,7 +21,8 @@ claim with the same experiment design:
   reference's MPC tapes), evaluated per env.
 
 Prints one JSON line per (method, n_ops, batch): ms/eval and
-instruction-throughput (ops * batch / s). Chained-scan timing as bench.py.
+instruction-throughput (ops * batch / s), with the device it ran on.
+Chained-scan timing as bench.py.
 
 Usage: python bench_synthetic.py [--ops 1e1,1e2,1e3,1e4,1e5]
                                  [--batches 256,4096,32768] [--cpu]
@@ -63,9 +61,7 @@ def make_tape(n_ops: int, seed: int = 0):
 def apply_tape_rows(tape, s):
     """Evaluate the tape on a (N_STATE, ...) array of state ROWS.
 
-    Keepdims row indexing only, so the same code lowers cleanly in XLA,
-    in vmap, and inside a Pallas TPU kernel (Mosaic rejects the implicit
-    layouts of rank-dropping row reads)."""
+    Keepdims row indexing only, so every op stays a full-batch row op."""
     import jax.numpy as jnp
 
     rows = [s[i : i + 1] for i in range(N_STATE)]
@@ -118,13 +114,12 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
 
+    from bench_common import device_info
     from biped_pympc_tpu.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
-    dev = str(jax.devices()[0])
+    dev = device_info()
 
     def timed(fn, x, chain, reps):
         @jax.jit
@@ -151,36 +146,17 @@ def main():
         def xla_fn(s):  # s: (N_STATE, B) batch-last
             return apply_tape_rows(tape, s)
 
-        def pallas_fn(s):
-            def kernel(s_ref, o_ref):
-                o_ref[...] = apply_tape_rows(tape, s_ref[...])
-
-            return pl.pallas_call(
-                kernel,
-                out_shape=jax.ShapeDtypeStruct(s.shape, s.dtype),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            )(s)
-
         for batch in [int(b) for b in args.batches.split(",")]:
             rng = np.random.default_rng(1)
             x = jnp.asarray(
                 rng.uniform(0.5, 1.5, (N_STATE, batch)).astype(np.float32))
-            for name, fn in (("xla", xla_fn), ("pallas", pallas_fn)):
-                try:
-                    t, compile_s = timed(fn, x, args.chain, args.reps)
-                    print(json.dumps({
-                        "method": name, "n_ops": n_ops, "batch": batch,
-                        "ms_per_eval": round(1e3 * t, 4),
-                        "giga_instr_per_sec": round(
-                            n_ops * batch / t / 1e9, 3),
-                        "compile_s": round(compile_s, 1),
-                        "device": dev,
-                    }), flush=True)
-                except Exception as e:  # pragma: no cover
-                    print(json.dumps({
-                        "method": name, "n_ops": n_ops, "batch": batch,
-                        "error": type(e).__name__}), flush=True)
+            t, compile_s = timed(xla_fn, x, args.chain, args.reps)
+            print(json.dumps({
+                "method": "xla", "n_ops": n_ops, "batch": batch,
+                "ms_per_eval": 1e3 * t,
+                "giga_instr_per_sec": n_ops * batch / t / 1e9,
+                "compile_s": compile_s, "device": dev,
+            }), flush=True)
             if args.cpu and n_ops * batch <= 10_000_000:
                 xs = np.asarray(x.T, dtype=np.float64)
                 t0 = time.perf_counter()

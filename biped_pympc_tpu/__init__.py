@@ -1,10 +1,9 @@
-"""biped_pympc_tpu — TPU-native batched MPC for bipedal locomotion.
+"""Batched MPC for bipedal locomotion in JAX.
 
-Brand-new JAX/Pallas re-implementation of the capabilities of
-rl-augmented-mpc/Biped-PyMPC (reference mounted at /root/reference): batched
-SRBD convex MPC with a fixed-iteration Mehrotra PDIPM, full swing/stance
-control stack, HECTOR and Booster T1 robot models — with zero offline
-codegen and env-batch sharding over TPU meshes.
+A JAX re-implementation of the capabilities of rl-augmented-mpc/Biped-PyMPC:
+batched SRBD convex MPC with a fixed-iteration Mehrotra PDIPM, full
+swing/stance control stack, HECTOR and Booster T1 robot models — with zero
+offline codegen and env-batch sharding over device meshes.
 
 Public API mirrors the reference package root
 (`/root/reference/biped_pympc/__init__.py`).

@@ -14,7 +14,7 @@ deprecated 13-state (gravity-augmented) formulation in
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Literal, Tuple, Union
+from typing import Literal, Tuple
 
 _DEFAULT_Q = (150.0, 150.0, 250.0, 100.0, 100.0, 250.0, 1.0, 1.0, 5.0, 10.0, 10.0, 1.0)
 _DEFAULT_R = (1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-5, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4)
@@ -33,14 +33,13 @@ class ControllerConf:
 
 
 def recommended_conf(robot: str = "HECTOR"):
-    """(ControllerConf, MPCConf kwargs) tuned per robot, TPU-measured.
+    """(ControllerConf, MPCConf kwargs) tuned per robot, closed-loop measured.
 
     The reference ships one set of gait/contact constants sized for HECTOR
     and applies them to every robot (`configuration.py:6-20`,
-    `srbd_constraints.py:31,161-162`). The round-5 TPU sweep
-    (`bench/ab_t1_tune.py`, results/t1_tune.jsonl: 24 configs x 16
-    randomized commands as ONE batched rollout) measured the 40 kg T1's
-    tuned gait: longer swing (ssp=9 vs 5 MPC steps), a short double-support
+    `srbd_constraints.py:31,161-162`). A closed-loop sweep
+    (`bench/ab_t1_tune.py`: 24 configs x 16 randomized commands as ONE
+    batched rollout) measured the 40 kg T1's tuned gait: longer swing (ssp=9 vs 5 MPC steps), a short double-support
     phase (dsp=2), higher swing apex (0.12 m), plus its real foot levers
     (RobotSpec.lt/lh, on by default) and f_max=1450 N — taking the 10 s
     randomized protocol from 59% upright / 6 cm height error
@@ -72,55 +71,21 @@ class MPCConf:
     decimation: int = 10
     Q: Tuple[float, ...] = _DEFAULT_Q
     R: Tuple[float, ...] = _DEFAULT_R
-    # Default: the two-level augmented backend — same f32-robust accuracy
+    # "ric_aug": the two-level augmented backend — same f32-robust accuracy
     # class as "tridiag_aug" (f64 golden parity ~2e-8) at a fraction of the
-    # factorization work. On TPU use the fused kernels: "pallas_ric_aug"
-    # (DEFAULT recommendation — with the foot-split factorization it holds
-    # the robust accuracy class, max 0.29 N on the stress QPs, at 1.6x
-    # the condensed kernel's cost; BENCH.md round 2).
-    # SPEED MODES (measured caveats, BENCH.md "hybrid flag"):
-    #   "pallas_hybrid" — condensed kernel everywhere + budgeted augmented
-    #     re-solve of the worst-criterion envs. GUARANTEES finiteness
-    #     while the budget covers the non-finite count — true by ~5x
-    #     margin at the default auto budget; a small fixed hybrid_budget
-    #     forfeits it (see solve_hybrid docstring)
-    #     (measured 100% finite at batch 32768 under domain randomization,
-    #     where the bare condensed kernel NaNs on 0.6-0.7% of envs) at
-    #     ~1.13x the condensed cost, and repairs the worst divergent
-    #     envs — but the residual criterion does not separate the f32
-    #     condensation error tail (12.9% of randomized envs differ >1 N
-    #     from the augmented solution; best-case flag still leaves ~3 N
-    #     unflagged while re-solving half the batch), so it is NOT a
-    #     robust-accuracy substitute.
-    #   "pallas_ric" — bare condensed kernel: QUARANTINED for randomized
-    #     domains (silent NaNs on 0.6-0.7% of envs + the same error
-    #     tail); use it only on benign, well-conditioned workloads, or
-    #     via "pallas_hybrid" for the finiteness guarantee.
+    # factorization work; pure JAX, compiled by XLA for any device and
+    # dtype. It is the reference the fused solver is checked against.
+    # "fused_ric_aug" runs the same algorithm (foot-split, one refinement
+    # step) as one fused native kernel per solve: CUDA on a GPU, C++ on the
+    # CPU (`ops/pdipm_fused.py`). It supports exactly that configuration in
+    # float32 and raises for any other option.
+    # "auto" (default) picks "fused_ric_aug" where it was measured faster —
+    # a GPU, float32, fixed iterations, the kernel's options — and
+    # "ric_aug" everywhere else (`controller.resolve_solver`).
     solver: Literal[
-        "tridiag_aug", "tridiag", "dense", "ric", "ric_aug",
-        "pallas", "pallas_aug", "pallas_ric", "pallas_ric2",
-        "pallas_ric_aug", "pallas_hybrid",
-    ] = "ric_aug"
-    # "pallas_hybrid" knobs: the fast condensed kernel runs on every env,
-    # then at most `hybrid_budget` envs whose final residual criterion
-    # max(||rx||, ||rs||, ||re||, mu) exceeds `hybrid_flag_tol` — or is
-    # non-finite, or whose solution is non-finite — are re-solved with the
-    # robust augmented kernel (worst-first). hybrid_budget <= 0 (default)
-    # auto-sizes to max(64, batch // 32): ~3.1% of the batch, ~5x the
-    # measured 0.65% randomized-domain NaN rate of the condensed speed
-    # mode. Flag-tol calibration measured in BENCH.md "hybrid flag".
-    hybrid_budget: int = 0
-    hybrid_flag_tol: float = 1.0
-    # Hybrid flag criterion: "resid" = the solver's own final residual
-    # criterion (one Newton step stale); "kkt" = the TRUE KKT residual of
-    # the returned iterate under the exact operator (one vmapped operator
-    # apply, `pdipm.kkt_error`). Round-4 calibration (BENCH.md "hybrid
-    # flag round 4", results/ab_round4.jsonl): the true-KKT criteria do
-    # NOT beat the stale residual — Spearman vs true error 0.50-0.61 vs
-    # 0.64, equal-or-worse recall at every flag budget, +6% solve cost
-    # for the operator apply. The >1 N tail is genuinely hard to flag
-    # cheaply; default stays "resid".
-    hybrid_flag: Literal["resid", "kkt"] = "resid"
+        "auto", "tridiag_aug", "tridiag", "dense", "ric", "ric_aug",
+        "fused_ric_aug",
+    ] = "auto"
     robot: Literal["HECTOR", "T1", "T1-newton"] = "HECTOR"
     # Solver knobs (reference constants: `sparse_pdipm_solver.py`,
     # `mpc_controller_cusadi.py:28,144`).
@@ -134,39 +99,18 @@ class MPCConf:
     # saturates.
     f_max: float = 500.0
     solver_refine_steps: int = 1
-    # Foot-split stage factorization ("ric"/"ric_aug" backends, pure-JAX and
-    # Pallas): the stage [u, nu] / [u, z, nu] blocks decompose EXACTLY by
-    # foot (no cost term, friction/line-contact row, or Mx selector couples
-    # foot L's inputs to foot R's — only the dynamics do, and those live in
-    # the y-chain), so the per-stage inverses shrink from one 14-/30-wide
-    # elimination to two 4-/12-wide ones (~21x / ~7.8x fewer factor flops)
-    # with bitwise-identical f64 results (`tests/test_pdipm.py::
-    # test_foot_split_exactness`). Measured TPU A/B in BENCH.md round 2:
-    # 3.25x faster ric_aug (155 -> 48 ms at b4096), and much faster cold
-    # kernel compiles (per backend: ric dense 443 s -> split 13 s; ric_aug
-    # dense 68-77 s -> split 22 s). Default ON; set False for the dense
-    # cross-check factorization. NOTE: on the CONDENSED "ric" backend the
-    # split widens the worst-case f32 stress tail (65 vs 4 N on one
-    # near-degenerate problem; round-2 A/B) — upgraders already on
-    # solver="ric"/"pallas_ric" get a changed accuracy profile from this
-    # default (also called out in README "Upgrade notes"). The shipped
-    # default pairs the split with the augmented backend, where it is
-    # accuracy-neutral (0.29 vs 0.11 N).
+    # Foot-split stage factorization ("ric"/"ric_aug" backends): the stage
+    # [u, nu] / [u, z, nu] blocks decompose EXACTLY by foot (no cost term,
+    # friction/line-contact row, or Mx selector couples foot L's inputs to
+    # foot R's — only the dynamics do, and those live in the y-chain), so
+    # the per-stage inverses shrink from one 14-/30-wide elimination to two
+    # 4-/12-wide ones (~21x / ~7.8x fewer factor flops) with bitwise-
+    # identical f64 results (`tests/test_pdipm.py::test_foot_split_exactness`).
+    # Default ON; set False for the dense cross-check factorization. NOTE: on
+    # the CONDENSED "ric" backend the split widens the worst-case f32 stress
+    # tail; the shipped default pairs the split with the augmented backend,
+    # where it is accuracy-neutral.
     solver_foot_split: bool = True
-    # Sublane packing of the foot-split blocks (Pallas kernels only): the
-    # split's per-foot 4-wide (ric) / 12-wide (ric_aug) tiles waste VPU
-    # sublanes (4/8 resp. 12/16 occupancy — the round-2 "Speed of light"
-    # recorded lever (b)); packing both feet's blocks column-wise into one
-    # array runs the paired Gauss-Jordan and every K^-1 apply at full tile
-    # width. Numerically identical per foot (same recurrence and pivot
-    # choices; `tests/test_pdipm_pallas.py::test_pallas_foot_pack_matches
-    # _unpacked`). MEASURED NEGATIVE, default OFF: on v5e the packed forms
-    # are slower at every batch — ric 30.9 vs 29.9 ms, ric_aug 85.2
-    # (paired-pivot GJ) / 48.9 ("apply"-only repack) vs 47.9 ms at b4096
-    # (BENCH.md round 3 "Sublane packing"); the lever's occupancy model
-    # did not survive contact with Mosaic's actual scheduling. Kept as
-    # tested variants (True | "apply") for other shapes/hardware.
-    solver_foot_pack: Union[bool, Literal["apply"]] = False
     # Adaptive iterations (opt-in, NOT strict reference parity): when > 0,
     # run the solver in `adaptive_chunk`-step launches inside a
     # `lax.while_loop` and stop early once EVERY env's residual criterion
@@ -174,28 +118,20 @@ class MPCConf:
     # `newton_iterations` cap). Mirrors the reference's own outer loop over
     # fused 5-iteration launches (`mpc_controller_cusadi.py:144-169`) with
     # a data-dependent stop. 0 = fixed-iteration reference behavior.
-    # MEASURED CAVEAT (BENCH.md "Adaptive iterations"): under SPMD one stop
-    # decision gates the whole batch, and on realistic batches the worst
-    # env's stationarity residual stays O(10) N at the cap — the stop never
-    # fires and the chunked launches cost ~6%. Useful only for genuinely
-    # homogeneous well-conditioned workloads with a calibrated tol.
+    # Caveat: one stop decision gates the whole batch, and on realistic
+    # batches the worst env's stationarity residual stays O(10) N at the
+    # cap, so the stop never fires and the chunked launches cost extra.
+    # Useful only for homogeneous well-conditioned workloads with a
+    # calibrated tol.
     adaptive_tol: float = 0.0
     adaptive_chunk: int = 5
     # Jacobi KKT equilibration of the per-stage factorizations ("ric"/
-    # "ric_aug" families, pure-JAX and Pallas): the stage blocks are
-    # congruence-scaled to ~unit diagonal before elimination and unscaled
-    # after (K^-1 = D (D K D)^-1 D, exact). Pure factorization
-    # preconditioning — iterates are algebraically the reference's at
-    # every step; only f32 rounding changes. Measured on TPU round 4
-    # (BENCH.md "KKT equilibration", results/ab_round4.jsonl): cost-
-    # neutral (+-1%) but accuracy-NEUTRAL on the robust default (stress
-    # max 0.283 vs 0.286 N) and NOT a refinement substitute on TPU
-    # (refine_steps=0 stress tail 82.6 N with scaling; earlier CPU-f32
-    # reads of a large r0 win did not transfer to TPU rounding). On the
-    # randomized golden-attributed tail envs both scaled and unscaled are
-    # ~10 N off (coin-flip closer) — the tail is an f32 limit, not a
-    # scaling pathology. Default stays "none"; the knob remains for
-    # degraded modes (it does cut aff_ref's stress tail 15.1 -> 4.3 N).
+    # "ric_aug" families): the stage blocks are congruence-scaled to ~unit
+    # diagonal before elimination and unscaled after (K^-1 = D (D K D)^-1 D,
+    # exact). Pure factorization preconditioning — iterates are
+    # algebraically the reference's at every step; only f32 rounding
+    # changes. Accuracy-neutral on the robust default and not a substitute
+    # for refinement; default "none".
     solver_kkt_scale: Literal["none", "jacobi"] = "none"
     # Euler-rate convention; see `models/srbd.py` docstring. "rt_omega"
     # matches the shipped CUDA path, "r_omega" the CPU CasADi source.

@@ -12,7 +12,10 @@ pytree with a leading env-batch axis; `reset(env_ids)` becomes a masked
     joint_torque :  state -> (B, 2*dof)            (`command_joint_torque`)
 
 Everything is written single-env in the submodules and vmapped here; the
-batch axis is the axis that shards across the TPU mesh (`parallel/mesh.py`).
+batch axis is the axis that shards across the device mesh (`parallel/mesh.py`).
+Every jitted step traces its float32 matrix products at full precision
+(`_step`), so no backend may run them in a reduced-precision mode such as
+TF32.
 """
 
 from __future__ import annotations
@@ -28,6 +31,49 @@ from biped_pympc_tpu.control import estimator, gait, legs, mpc, swing
 from biped_pympc_tpu.models.robot import RobotSpec, get_robot
 from biped_pympc_tpu.ops import pdipm
 from biped_pympc_tpu.ops.pdipm import PdipmOptions
+
+SOLVERS = ("tridiag_aug", "tridiag", "dense", "ric", "ric_aug",
+           "fused_ric_aug")
+# Removed Pallas solver names -> their replacement.
+_REMOVED_SOLVERS = {
+    "pallas": "tridiag", "pallas_aug": "tridiag_aug", "pallas_ric": "ric",
+    "pallas_ric2": "ric", "pallas_ric_aug": "ric_aug",
+    "pallas_hybrid": "ric_aug",
+}
+
+
+def resolve_solver(mpc_cfg: MPCConf, dtype) -> str:
+    """The solver `MPCConf.solver` names; "auto" becomes "fused_ric_aug"
+    where that kernel runs and was measured faster than plain XLA (a GPU,
+    float32, fixed iterations, its one option set; PERF.md) and "ric_aug"
+    everywhere else. "ric_aug" stays the reference and float64 path."""
+    if mpc_cfg.solver != "auto":
+        return mpc_cfg.solver
+    fused = (jax.default_backend() == "gpu"
+             and jnp.dtype(dtype) == jnp.float32
+             and mpc_cfg.adaptive_tol == 0.0
+             and mpc_cfg.solver_foot_split
+             and mpc_cfg.solver_refine_steps == 1
+             and mpc_cfg.solver_kkt_scale == "none")
+    return "fused_ric_aug" if fused else "ric_aug"
+
+
+def _step(fn):
+    """`jax.jit` a `BipedControllerCore` method (self static) with every
+    matmul/einsum traced at `precision=HIGHEST`.
+
+    float32 products may otherwise run in TF32 on a GPU, which keeps about
+    three decimal digits — far too few for the PDIPM's ill-conditioned
+    late-iteration KKT solves. The precision is fixed at trace time, so it
+    also covers these steps when a caller inlines them into its own jit.
+    """
+
+    @functools.wraps(fn)
+    def traced(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+
+    return jax.jit(traced, static_argnums=0)
 
 
 class ControllerState(NamedTuple):
@@ -85,47 +131,21 @@ class BipedControllerCore:
         self.gait_id = gait_id
         self.dtype = dtype
         self.robot: RobotSpec = get_robot(mpc_cfg.robot)
-        # Pallas kernel algorithm menu (each also exists as a pure-JAX
-        # backend under the un-prefixed name). With the round-2 foot-split
-        # factorization (`MPCConf.solver_foot_split`, default on):
-        #   pallas_ric_aug - two-level augmented: THE TPU DEFAULT — robust
-        #                    f32 accuracy (max 0.29 N stress-QP GRF error
-        #                    vs f64 golden) at 1.6x pallas_ric's cost
-        #                    (47.9 vs 29.9 ms solver-only at b4096)
-        #   pallas_hybrid  - speed mode WITH finiteness guarantee: the
-        #                    condensed kernel everywhere + budgeted
-        #                    augmented re-solve of the worst-criterion
-        #                    envs (100% finite at b32768 randomized,
-        #                    33.7 ms at b4096; NOT robust-accuracy — see
-        #                    MPCConf.solver / BENCH.md "hybrid flag")
-        #   pallas_ric     - bare condensed kernel: quarantined for
-        #                    randomized domains (NaNs on 0.6-0.7% of envs
-        #                    + f32 tails of tens of N on near-degenerate
-        #                    contact-switch QPs)
-        #   pallas_ric2    - ric with the 2-wide nu block eliminated by a
-        #                    rank-2 Schur identity — superseded by
-        #                    pallas_ric+foot_split on both axes
-        #   pallas         - 26-wide Thomas sweep (round-0 default)
-        #   pallas_aug     - 42-wide augmented Thomas sweep
-        # (A log-depth cyclic-reduction variant, "pallas_bcr", was removed
-        # in round 4: slower at every horizon measured, T=10/20/40 —
-        # results/ab_round4.jsonl phase E.)
-        known = ("tridiag_aug", "tridiag", "dense", "ric", "ric_aug",
-                 "pallas", "pallas_aug", "pallas_ric",
-                 "pallas_ric2", "pallas_ric_aug", "pallas_hybrid")
-        if mpc_cfg.solver not in known:
+        if mpc_cfg.solver in _REMOVED_SOLVERS:
+            raise ValueError(
+                f"MPCConf.solver {mpc_cfg.solver!r} was removed; use "
+                f"{_REMOVED_SOLVERS[mpc_cfg.solver]!r} (or "
+                "'fused_ric_aug', the fused native kernel)"
+            )
+        if mpc_cfg.solver not in ("auto",) + SOLVERS:
             raise ValueError(
                 f"unknown MPCConf.solver {mpc_cfg.solver!r}; expected one of "
-                f"{known}"
+                f"{('auto',) + SOLVERS}"
             )
-        backend = {
-            "pallas": "tridiag", "pallas_aug": "tridiag_aug",
-            "pallas_ric": "ric",
-            "pallas_ric2": "ric2", "pallas_ric_aug": "ric_aug",
-            # hybrid: fast condensed pass everywhere + budgeted augmented
-            # re-solve of residual-flagged envs (pdipm_pallas.solve_hybrid)
-            "pallas_hybrid": "ric",
-        }.get(mpc_cfg.solver, mpc_cfg.solver)
+        # The solver every step runs ("auto" resolved once, here).
+        self.solver = resolve_solver(mpc_cfg, dtype)
+        backend = ("ric_aug" if self.solver == "fused_ric_aug"
+                   else self.solver)
         self.opts = PdipmOptions(
             iterations=mpc_cfg.newton_iterations,
             iterations_per_launch=mpc_cfg.adaptive_chunk,
@@ -136,14 +156,6 @@ class BipedControllerCore:
             kkt_scale=mpc_cfg.solver_kkt_scale,
             foot_split=mpc_cfg.solver_foot_split
             and backend in ("ric", "ric_aug"),
-            # solver_foot_pack last so its value (True | "apply") survives
-            # the boolean-gate chain.
-            foot_pack=(
-                mpc_cfg.solver_foot_split
-                and mpc_cfg.solver.startswith("pallas")
-                and backend in ("ric", "ric_aug")
-                and mpc_cfg.solver_foot_pack
-            ),
         )
         self.num_dof = self.robot.num_dof
 
@@ -197,7 +209,7 @@ class BipedControllerCore:
             swing_state=state.swing_state._replace(swing_time_remaining=swing_dur)
         )
 
-    @functools.partial(jax.jit, static_argnums=0)
+    @_step
     def reset(self, state: ControllerState, mask: jnp.ndarray) -> ControllerState:
         """Masked episodic reset (`biped_controller.py:82-87`): gait phase to
         0, first-run/first-swing latches re-armed. mask: (B,) bool."""
@@ -211,7 +223,7 @@ class BipedControllerCore:
     # Per-tick entry points.
     # ------------------------------------------------------------------
 
-    @functools.partial(jax.jit, static_argnums=0)
+    @_step
     def set_command(self, state: ControllerState, twist: jnp.ndarray,
                     height: jnp.ndarray) -> ControllerState:
         """twist: (B, 3) = [vx, vy, wz] body frame; height: (B,)
@@ -228,7 +240,7 @@ class BipedControllerCore:
         )
         return state._replace(des=des)
 
-    @functools.partial(jax.jit, static_argnums=0)
+    @_step
     def ingest_state(self, state: ControllerState, obs: jnp.ndarray) -> ControllerState:
         """Split the flat sim state and refresh estimator + leg kinematics.
 
@@ -266,8 +278,8 @@ class BipedControllerCore:
         """Vmapped per-env QP assembly phase of `run_mpc`.
 
         Returns (new_mem, x_ref, qp) with a leading batch axis on every
-        leaf. Public so measurement harnesses (accuracy A/B, hybrid-flag
-        calibration) can extract the exact production QP batch.
+        leaf. Public so measurement harnesses (accuracy checks) can extract
+        the exact production QP batch.
         """
         contact_table = jax.vmap(
             lambda p, g: gait.mpc_contact_table(p, g, self.mpc_cfg.horizon_length)
@@ -299,35 +311,27 @@ class BipedControllerCore:
             state.residual_A, state.residual_B,
         )
 
-    @functools.partial(jax.jit, static_argnums=0)
+    @_step
     def run_mpc(self, state: ControllerState):
         """MPC solve at the decimated rate (`biped_controller.py:116-147`).
 
         Three phases: vmapped per-env QP assembly, one batched PDIPM solve
-        (pure-JAX vmap or the fused Pallas kernel, per `MPCConf.solver`),
+        (pure-JAX vmap or the fused native kernel, per `self.solver`),
         vmapped postprocess. Returns (state, MpcOutput batched); the wrench
         becomes the leg command's feed-forward term.
         """
         new_mem, x_ref, qp = self.assemble_mpc(state)
 
         adaptive = self.mpc_cfg.adaptive_tol > 0.0
-        if self.mpc_cfg.solver.startswith("pallas"):
-            from biped_pympc_tpu.ops import pdipm_pallas
+        if self.solver == "fused_ric_aug":
+            from biped_pympc_tpu.ops import pdipm_fused
 
-            if self.mpc_cfg.solver == "pallas_hybrid":
-                sol, hybrid_stats = pdipm_pallas.solve_hybrid(
-                    qp, self.opts,
-                    budget=self.mpc_cfg.hybrid_budget,
-                    flag_tol=self.mpc_cfg.hybrid_flag_tol,
-                    flag=self.mpc_cfg.hybrid_flag,
-                    with_stats=True,
+            if adaptive:
+                raise ValueError(
+                    "MPCConf.adaptive_tol needs a pure-JAX solver; "
+                    "'fused_ric_aug' runs a fixed iteration count"
                 )
-            elif adaptive:
-                sol = pdipm_pallas.solve_adaptive(
-                    qp, self.opts, tol=self.mpc_cfg.adaptive_tol
-                )
-            else:
-                sol = pdipm_pallas.solve(qp, self.opts)
+            sol = pdipm_fused.solve(qp, self.opts)
         elif adaptive:
             sol = pdipm.solve_adaptive_batch(
                 qp, self.opts, tol=self.mpc_cfg.adaptive_tol
@@ -341,11 +345,6 @@ class BipedControllerCore:
                 contact_frame=self.mpc_cfg.contact_frame,
             )
         )(qp, sol, state.est.rotation_body, x_ref)
-        if self.mpc_cfg.solver == "pallas_hybrid":
-            # Batch-level counters (no env axis); see MpcOutput docstring.
-            out = out._replace(hybrid_counts=jnp.stack(
-                [hybrid_stats.flagged, hybrid_stats.nonfinite,
-                 hybrid_stats.resolved, hybrid_stats.dropped_nonfinite]))
 
         cmd = state.leg_cmd._replace(wrench_ff=out.wrench)
         state = state._replace(
@@ -353,7 +352,7 @@ class BipedControllerCore:
         )
         return state, out
 
-    @functools.partial(jax.jit, static_argnums=0)
+    @_step
     def run_lowlevel(self, state: ControllerState) -> ControllerState:
         """Swing control + leg command + gait phase advance
         (`biped_controller.py:124-169`)."""
@@ -416,14 +415,14 @@ class BipedControllerCore:
             contact_phase=contact_phase, swing_phase=swing_phase,
         )
 
-    @functools.partial(jax.jit, static_argnums=0)
+    @_step
     def joint_torque(self, state: ControllerState) -> jnp.ndarray:
         """(B, 2 * dof) final PD + feed-forward torque, clamped."""
         return jax.vmap(
             lambda d, c: legs.joint_torque(self.robot, d, c)
         )(state.leg_data, state.leg_cmd)
 
-    @functools.partial(jax.jit, static_argnums=0)
+    @_step
     def control_step(self, state: ControllerState, obs: jnp.ndarray,
                      twist: jnp.ndarray, height: jnp.ndarray):
         """Fused full control tick including the MPC solve: command + state

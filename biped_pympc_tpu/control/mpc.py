@@ -65,12 +65,6 @@ class MpcOutput(NamedTuple):
     grf_world: jnp.ndarray  # (12,) raw u_0 = [F_L, F_R, M_L, M_R], world frame
     solution: jnp.ndarray  # (nz,) full QP primal solution
     residuals: jnp.ndarray  # (4,) final PDIPM residual norms + mu
-    # Batch-level hybrid observability (solver="pallas_hybrid" only, else
-    # None): (4,) int32 [flagged, nonfinite, resolved, dropped_nonfinite]
-    # per solve — dropped_nonfinite > 0 means the finiteness guarantee
-    # LAPSED this solve (budget < non-finite count). Attached after the
-    # per-env postprocess, so it carries no batch axis.
-    hybrid_counts: jnp.ndarray | None = None
 
 
 def reference_trajectory(
@@ -184,8 +178,8 @@ def build_mpc_qp(
     solution rotates back in postprocess; turning then works at any
     heading. Also enables yaw-error wrapping in the reference trajectory.
 
-    Split out from the solve so the batched Pallas kernel can run on the
-    whole batch at once between the vmapped build and postprocess phases.
+    Split out from the solve so the fused solver can run on the whole
+    batch at once between the vmapped build and postprocess phases.
     Returns (new_mem, x_ref, qp).
     """
     dtype = est.root_position.dtype

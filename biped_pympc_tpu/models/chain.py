@@ -1,6 +1,6 @@
 """Generic serial-chain forward kinematics + geometric Jacobian (pure JAX).
 
-TPU-native replacement for the reference's Pinocchio + pinocchio.casadi
+JAX replacement for the reference's Pinocchio + pinocchio.casadi
 kinematics generator (`/root/reference/biped_pympc/casadi/t1_kinematics.py`):
 instead of building CasADi graphs from a URDF through a C++ rigid-body
 library, a serial chain is described by per-joint (origin, axis) constants and

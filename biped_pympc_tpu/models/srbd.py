@@ -1,6 +1,6 @@
 """Single-rigid-body dynamics (SRBD) for bipedal convex MPC — pure JAX.
 
-TPU-native re-derivation of the reference's CasADi symbolic model
+JAX re-derivation of the reference's CasADi symbolic model
 (`/root/reference/biped_pympc/casadi/srbd_centroidal_model.py:123-166`) and its
 RK4 discretization (`:101-121`). The key structural observation exploited here:
 for a *fixed* linearization point (rotation, inertia, foot positions), the SRBD
@@ -31,10 +31,8 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-# Closed-form 3x3 inverse: `jnp.linalg.inv` lowers to a sequential LU
-# custom call that is orders of magnitude slower on TPU for tiny matrices
-# (it alone dominated the rollout plant tick at batch 4096: ~14.5 ms vs
-# ~0.27 ms for the whole control stack).
+# Closed-form 3x3 inverse: pure elementwise math instead of the generic
+# batched LU that `jnp.linalg.inv` lowers to.
 from biped_pympc_tpu.ops.linalg import inverse_3x3 as _inv3
 
 GRAVITY = 9.81

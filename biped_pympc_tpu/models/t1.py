@@ -44,8 +44,8 @@ MU = 1.0
 #   lt = 0.223/2 + 0.01 = 0.1215 m,  lh = 0.223/2 - 0.01 = 0.1015 m.
 # The reference instead applies HECTOR's 0.07/0.04 to T1
 # (`srbd_constraints.py:161-162` — baked into the compiled kernel), halving
-# the 40 kg robot's available pitch-moment authority; measured on TPU this
-# is a primary cause of its height/velocity tracking gap (BENCH.md round 5).
+# the 40 kg robot's available pitch-moment authority; in closed loop this is
+# a primary cause of its height/velocity tracking gap.
 LT = 0.1215
 LH = 0.1015
 KP = (20.0, 20.0, 20.0, 20.0, 15.0, 15.0)  # `t1.py:47`
@@ -157,8 +157,7 @@ def analytical_ik_newton(p_foot_b: jnp.ndarray, leg: int,
         j4 = jac[:, active]  # (3, 4)
         r = p_foot_b - p
         m = j4 @ j4.T + lam * jnp.eye(3, dtype=dtype)
-        # Closed-form 3x3 inverse: jnp.linalg.solve's LU custom call is
-        # orders of magnitude slower on TPU for tiny systems.
+        # Closed-form 3x3 inverse: elementwise math, no batched LU call.
         dq4 = j4.T @ (linalg.inverse_3x3(m) @ r)
         q = q.at[active].add(dq4)
         return q, None

@@ -1,6 +1,6 @@
 """Minimal URDF -> `SerialChain` ingestion (pure Python, no Pinocchio).
 
-TPU-native replacement for the reference's URDF pipeline
+JAX-side replacement for the reference's URDF pipeline
 (`/root/reference/biped_pympc/casadi/t1_kinematics.py:24-54`: Pinocchio
 parses `model/t1_serial.urdf`, locks the non-leg joints, and exports CasADi
 FK/Jacobian functions per foot). Here the same information — per-joint

@@ -1,18 +1,17 @@
-"""Batched small-matrix linear algebra tuned for TPU.
+"""Batched small-matrix linear algebra written as elementwise steps.
 
-XLA's generic batched LU (`jnp.linalg.inv` / `lu_factor`) lowers to a
-sequential, dynamically-sliced loop that runs orders of magnitude below
-hardware capability on TPU for tiny matrices. The solver's hot op is the
-inverse of (batch, 54, 54) stage blocks, so we implement Gauss-Jordan
-elimination with partial pivoting where every step is a *batched, fused
-elementwise/VPU* operation over the whole (batch, n, 2n) tableau:
+The solver inverts many tiny stage blocks per env. Instead of XLA's
+generic batched LU (`jnp.linalg.inv` / `lu_factor`), which lowers to a
+sequential, dynamically-sliced loop, Gauss-Jordan elimination with partial
+pivoting runs every step as a batched elementwise operation over the whole
+(batch, n, 2n) tableau:
 
   * pivot search: masked |column| argmax over rows — one reduction
   * row swap: two one-hot masked selects (no gather/scatter of rows)
   * elimination: one rank-1 update of the full tableau
 
-n sequential steps remain (inherent), but each step is wide, regular work —
-exactly what the VPU wants — instead of XLA's scalar-ish LU inner loops.
+n sequential steps remain (inherent); each is wide, regular work that XLA
+fuses across the batch.
 """
 
 from __future__ import annotations

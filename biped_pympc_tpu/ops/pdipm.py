@@ -1,6 +1,6 @@
 """Batched fixed-iteration Mehrotra PDIPM for the SRBD-MPC QP — pure JAX.
 
-TPU-native replacement for the reference's CasADi-unrolled solver
+JAX re-expression of the reference's CasADi-unrolled solver
 (`/root/reference/biped_pympc/casadi/sparse_pdipm_solver.py:357-534`) and its
 generated CUDA kernel. Same update rule, different linear algebra:
 
@@ -72,59 +72,31 @@ class PdipmOptions(NamedTuple):
     alpha_min: float = 1e-12  # (`:466-467`)
     sz_floor: float = 1e-8  # slack/dual clamp (`:511-515`)
     backend: str = "tridiag"  # "tridiag" | "tridiag_aug" | "dense" | "ric"
-    # | "ric2" | "ric_aug" ("bcr" removed round 4: results/ab_round4.jsonl)
+    # | "ric_aug" | "ric_aug_core"
     refine_steps: int = 0  # iterative-refinement passes on the reduced solve
-    # (0 suffices in f64; use 1-2 on the f32 TPU path to recover accuracy
-    # lost to the ill-conditioned late-iteration KKT)
-    refine_skip_iters: int = 0  # Pallas kernels only: run the FIRST this-
-    # many Newton steps with refine=0, the rest at refine_steps. Early
-    # iterates are far from complementarity (benign reduced-KKT scales),
-    # so their refinement solves can be skipped for ~refine_steps x
-    # skip/iterations of the solve cost — IF the stress accuracy class
-    # holds; measured A/B in BENCH.md round 3 "Scheduled refinement".
-    # 0 = refine every step (the round-2 behavior). Refinement is this
-    # implementation's own f32 repair (the f64 reference does plain
-    # solves), so the schedule is a numerical-design knob, not a parity
-    # deviation. Ignored by the pure-JAX backends. NOTE: under
-    # `solve_adaptive`'s chunked launches the skip applies per LAUNCH
-    # (each chunk counts its own first steps), so combine the two only
-    # deliberately.
+    # (0 suffices in f64; use 1-2 in f32 to recover accuracy lost to the
+    # ill-conditioned late-iteration KKT)
     refine_residual: str = "f32"  # "f32" | "df": precision of the
-    # iterative-refinement RESIDUAL r - K d. AUG backends only ("tridiag_
-    # aug"/"ric_aug", pure-JAX and Pallas kernels); the condensed backends
-    # reject "df" (their refinement residual runs through the G^T W^-1 G
-    # condensation, where W^-1 products would need a compensated chain —
-    # and the condensed class is quarantined for accuracy work anyway).
-    # "df" computes every residual component as one compensated
-    # (double-float) linear combination (`ops/df.py`) — the standard
-    # mixed-precision refinement practice the round-4 VERDICT asked to
-    # measure: the f32 residual is a catastrophic cancellation whose
+    # iterative-refinement RESIDUAL r - K d. AUG backends only
+    # ("tridiag_aug"/"ric_aug"); the condensed backends reject "df" (their
+    # refinement residual runs through the G^T W^-1 G condensation, where
+    # W^-1 products would need a compensated chain). "df" computes every
+    # residual component as one compensated (double-float) linear
+    # combination (`ops/df.py`) — the standard mixed-precision refinement
+    # practice: the f32 residual is a catastrophic cancellation whose
     # surviving digits are the f32 matvec's own rounding error, so f32
     # refinement can stall above the achievable accuracy. Costs ~25
     # elementwise flops per accumulated term in the operator apply (the
-    # apply is a small fraction of the factorization). Measured round 5
-    # (BENCH.md "extended-precision refinement"): see the A/B before
-    # relying on it.
+    # apply is a small fraction of the factorization).
     sigma_cap: float = 0.0  # if > 0, cap the complementarity scaling z/s at
-    # this value. Bounds the reduced-KKT condition number for the f32 TPU
-    # path; active constraints are then enforced to ~1/sigma_cap relative
-    # feasibility (proximal smoothing). 0 disables (exact reference rule).
-    # MEASURED: unusable on the MPC workload — the force caps/friction
-    # rows are strongly active and capping their scaling costs 70-335 N
-    # GRF error even at cap=1e6 (BENCH.md). Kept for diagnostics only.
-    inv_impl: str = "gj"  # "gj" (batched Gauss-Jordan, TPU-fast) or
-    # "lapack" (jnp.linalg.inv — XLA's sequential LU, orders of magnitude
-    # slower on TPU for tiny matrices; kept as a cross-check)
-    gj_form: str = "inplace"  # Pallas kernels: implementation of the
-    # no-pivot Gauss-Jordan inverses. "inplace" (in-situ Jordan inversion,
-    # (n, n, B) working set, fused to 2 VPU passes per elimination step) or
-    # "tableau" (augmented (n, 2n, B) tableau, 2 passes of twice the
-    # width). Same flop recurrence, half the per-step tile traffic:
-    # measured ~10% faster full MPC solves on the "ric" backend at every
-    # batch, neutral on "ric_aug" (see BENCH.md). The one-hot mask
-    # arithmetic must avoid ~1-sized cancellations (see
-    # `_gj_inverse_nopivot_inplace`) or the 1e8-scale condensed-W blocks
-    # lose the inverse entirely.
+    # this value. Bounds the reduced-KKT condition number in f32; active
+    # constraints are then enforced to ~1/sigma_cap relative feasibility
+    # (proximal smoothing). 0 disables (exact reference rule). Unusable on
+    # the MPC workload — the force caps/friction rows are strongly active
+    # and capping their scaling costs tens of newtons of GRF error. Kept
+    # for diagnostics only.
+    inv_impl: str = "gj"  # "gj" (batched Gauss-Jordan, elementwise steps)
+    # or "lapack" (jnp.linalg.inv; kept as a cross-check)
     corrector_form: str = "delta"  # All three are algebraically identical
     # (refinement is a linear map), differing in solve count and f32
     # rounding:
@@ -135,7 +107,7 @@ class PdipmOptions(NamedTuple):
     #   affine solve runs unrefined (feeds only sigma and ds*dz). 3 solves
     #   + 1 apply — but REJECTED as default: the summed rhs mixes the
     #   KKT-residual and complementarity scales in one f32 solve and the
-    #   stress tail degrades ~10x (BENCH.md).
+    #   stress tail degrades ~10x.
     # * "sum_refine": unrefined affine + unrefined corrector (both solves
     #   stay scale-separated), then refine the SUMMED direction against
     #   the full 4-row KKT residual — the refinement rhs is a small
@@ -144,21 +116,8 @@ class PdipmOptions(NamedTuple):
     #   apply. Hypothesis from the sum_refine isolation: the f32 failure
     #   mode of the cheap forms would be the unrefined AFFINE predictor
     #   poisoning sigma and the ds*dz corrector products, with the
-    #   corrector solve's own error entering only linearly. REJECTED:
-    #   measures max 15.1 N on the stress set vs 0.29 N for "delta"
-    #   (round-2 A/B, .ab_round2b.log / BENCH.md); kept for diagnostics.
-    aug_pivot: bool = True  # Pallas "ric_aug" kernel: per-lane pivot search
-    # in the 30-wide [u, z, nu] stage inverses. MEASURED REQUIRED: unlike
-    # the condensed K block (whose R+beta+G^T W^-1 G pivot is O(W)-strong),
-    # the augmented u pivot is only R+beta ~ 1e-6 against O(1) couplings —
-    # natural-order elimination overflows to NaN on every stress problem
-    # (3x faster, useless; BENCH.md). False kept for diagnostics only.
-    k_pivot: bool = False  # Pallas "ric" kernel only: pivot search in the
-    # lane-stacked [u, nu] stage inverses. The blocks are symmetric
-    # quasi-definite (SPD R+beta+G^T W^-1 G leading block, then a negative
-    # definite -delta I - E Ru^-1 E^T Schur), so natural-order elimination
-    # never needs a pivot swap and the search is pure overhead; True keeps
-    # the pivoted form for diagnostics.
+    #   corrector solve's own error entering only linearly. REJECTED: a
+    #   stress-set tail far above "delta"'s; kept for diagnostics.
     foot_split: bool = False  # "ric"/"ric_aug": exploit the EXACT foot
     # decoupling of the stage [u, nu] / [u, z, nu] blocks. No cost term,
     # G row, or Mx selector couples foot L's inputs {F_L, M_L} to foot R's
@@ -180,25 +139,7 @@ class PdipmOptions(NamedTuple):
     # pathologies behind every recorded f32 accuracy failure (1e8-scale
     # condensed W blocks, R ~ 1e-5 u pivots vs O(1) couplings). Applies to
     # the "ric"/"ric_aug" stage inverses; "ric_aug_core" embeds its own
-    # static u-scaling and ignores this knob. Measured A/B in BENCH.md r4.
-    interpret: "bool | None" = None  # Pallas kernels only: None (default)
-    # derives the Pallas interpret flag from `jax.default_backend()` at
-    # trace time; an explicit True/False overrides it — needed when the
-    # solve is deliberately placed on a NON-default backend (e.g. a CPU
-    # device mesh inside a TPU-default process), where the trace-time
-    # default would pick the wrong lowering (ADVICE r3).
-    foot_pack: "bool | str" = False  # False | True | "apply".
-    # Pallas foot-split kernels only: pack the two
-    # per-foot blocks side by side in the SUBLANE (column) dimension of
-    # one array instead of lane-stacking them — the split's 4-wide (ric)
-    # and 12-wide (ric_aug) tiles otherwise waste sublanes (4/8 resp.
-    # 12/16 occupancy, the recorded round-2 "Speed of light" lever (b)).
-    # The paired Gauss-Jordan eliminates row k of both blocks per step
-    # with per-half pivots (`_gj_pair_inplace` / `_gj_pair_pivot`), and
-    # the packed stored inverse makes every K^-1 apply a full-sublane
-    # pass. Numerically identical per half (same recurrence, same pivot
-    # choices). Ignored by the pure-JAX backends and when foot_split is
-    # off. TPU A/B in BENCH.md round 3.
+    # static u-scaling and ignores this knob.
 
 
 class PdipmState(NamedTuple):
@@ -528,11 +469,7 @@ def _solve_tridiag_aug(qp: StageQP, s_invs, r1, r_z, r4):
 #
 # Eliminating every x_{t+1} block directly (diagonal pivot Q+beta) leaves a
 # 26-wide block-tridiagonal system in [u_t, nu_t, y_t]; these helpers pack
-# the RHS into that condensed layout. (The log-depth block-cyclic-reduction
-# backend that also factored this system was REMOVED in round 4: measured
-# slower than the Riccati-style sweep at every horizon — 29.5/56.2/113.6 ms
-# vs 10.9/18.4/34.6 ms at T=10/20/40, b1024 — because the kernels are
-# throughput-bound, not depth-bound; results/ab_round4.jsonl phase E.)
+# the RHS into that condensed layout.
 
 def _split_condensed_rhs(qp: StageQP, r1: jnp.ndarray, r4: jnp.ndarray,
                          q_inv: jnp.ndarray):
@@ -572,8 +509,7 @@ def _pack_condensed(qp: StageQP, r1: jnp.ndarray, r4: jnp.ndarray,
 #     Yhat_t = Y'_t - S^T Yhat_{t-1}^-1 S        (dual Riccati, sequential)
 #
 # vs the 26-wide Thomas sweep this cuts the sequential elimination to 12-wide
-# inverses (~5x less sequential work) and batches the rest — the layout the
-# Pallas "ric" kernel implements with stages lane-concatenated.
+# inverses (~5x less sequential work) and batches the rest.
 
 _E_SEL_ROWS = ((0, 6), (1, 9))  # Mx selector: e[0, 6] = e[1, 9] = 1
 NUN = NU + N_MX_PER_STAGE  # 14
@@ -730,8 +666,10 @@ def _solve_ric(qp: StageQP, factors, r1: jnp.ndarray, r4: jnp.ndarray):
 # keeps every extreme scale (W up to ~1e8, -delta = -1e-8) on its own
 # diagonal where pivoted elimination handles it cleanly — the f32-robustness
 # property of "tridiag_aug" — while all T K_t inverses stay independent
-# (lane-batchable) and the sequential part is the same 12-wide y-chain as
-# "ric". Accuracy class of tridiag_aug at a fraction of its work.
+# (batchable) and the sequential part is the same 12-wide y-chain as
+# "ric". Accuracy class of tridiag_aug at a fraction of its work. The fused
+# CUDA solver (`ops/pdipm_cuda.py`) implements exactly this backend with
+# foot_split=True.
 
 N_KA = NU + N_INEQ_PER_STAGE + N_MX_PER_STAGE  # 30
 
@@ -835,9 +773,8 @@ def _solve_ric_aug(qp: StageQP, factors, r1, r_z, r4):
 
 # --- Scaled Riccati-core augmented backend ("ric_aug_core") ------------------
 #
-# The round-4 answer to the two levers BENCH.md r3 left on the table (KKT
-# equilibration + the 12-wide Riccati-core elimination), composed into one
-# factorization. Scale the inputs u = C u_hat with C = diag(1/sqrt(R+beta)):
+# KKT equilibration and the 12-wide Riccati-core elimination composed into
+# one factorization. Scale the inputs u = C u_hat with C = diag(1/sqrt(R+beta)):
 # the augmented stage block becomes
 #
 #     K_hat = [[I, V^T], [V, -Wfull]],   V = [G_u C; E C] (18 x 12),
@@ -1002,8 +939,7 @@ def _iteration(qp: StageQP, st: PdipmState, opts: PdipmOptions):
     if opts.backend not in _PURE_BACKENDS:
         raise ValueError(
             f"unknown pdipm backend {opts.backend!r}; expected one of "
-            f"{_PURE_BACKENDS} (note: 'bcr' was removed in round 4 — "
-            "results/ab_round4.jsonl phase E)"
+            f"{_PURE_BACKENDS}"
         )
     x, s, z, y = st
     ni = qp.n_ineq
@@ -1221,8 +1157,8 @@ def kkt_error(qp: StageQP, res: PdipmResult) -> jnp.ndarray:
     computed INSIDE the solver whose f32 condensation error they cannot
     see), this measures the returned iterate directly under the exact
     operator, so condensation loss shows up as stationarity/complementarity
-    residual. Round-4 hybrid flag criterion (VERDICT r3 item 3); the role
-    OSQP's eps_abs=1e-12 cross-check plays in the reference
+    residual; the role OSQP's eps_abs=1e-12 cross-check plays in the
+    reference
     (`mpc_controller_osqp.py:85`)."""
     hd = qps.h_diag(qp)
     rx = hd * res.x + qp.f + qps.gT_matvec(qp, res.z) + qps.aT_matvec(qp, res.y)
@@ -1235,8 +1171,7 @@ def kkt_error(qp: StageQP, res: PdipmResult) -> jnp.ndarray:
 
 def solve_adaptive_batch(qp, opts: PdipmOptions = PdipmOptions(),
                          tol: float = 1e-2) -> PdipmResult:
-    """Adaptive-iteration batched solve (pure-JAX counterpart of
-    `pdipm_pallas.solve_adaptive`).
+    """Adaptive-iteration batched solve.
 
     qp: StageQP pytree with a LEADING batch axis. Runs vmapped
     `opts.iterations_per_launch`-step chunks inside a `lax.while_loop`,

@@ -240,7 +240,7 @@ def dense_matrices(qp: StageQP):
 
     Matches the output convention of the reference qp_former
     (`srbd_constraints.py:75-79`); used by the golden CPU PDIPM and tests,
-    never by the TPU hot path.
+    never by the batched hot path.
     """
     import numpy as np
 

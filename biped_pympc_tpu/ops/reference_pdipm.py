@@ -12,7 +12,7 @@ predictor-corrector iteration that the reference unrolls into a CasADi SX graph
   * corrector rhs [0, -S^-1(s*z + ds_aff*dz_aff - sigma mu 1), 0, 0] (`:476-486`)
   * x,s <- + alpha_pri * d ; z,y <- + alpha_dual * d ; s,z clamped >= 1e-8
 
-It is the correctness oracle for the batched JAX/Pallas solvers (the role OSQP
+It is the correctness oracle for the batched JAX and fused solvers (the role OSQP
 and the CPU CasADi backend play in the reference,
 `mpc_controller_osqp.py` / `mpc_controller_casadi.py`). It is deliberately
 unbatched and unoptimized.

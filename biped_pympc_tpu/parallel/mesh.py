@@ -1,17 +1,16 @@
-"""Multi-chip scaling: env-batch sharding over a TPU device mesh.
+"""Multi-device scaling: env-batch sharding over a 1-D device mesh.
 
 The reference is single-process single-GPU (`SURVEY.md` section 2: no
-distributed backend exists to port). The TPU-native scaling design, per
-BASELINE.json: the environment batch is the parallel axis — shard it across
-every chip of a slice with `jax.sharding`, keep all per-env state resident
-(sharded the same way), and reduce only scalar metrics with `psum`-style
-collectives over ICI. DCN is touched only by the host fan-out that jax
-runtime already performs for multi-host meshes.
+distributed backend exists to port). Here the environment batch is the
+parallel axis: it is sharded across every device with `jax.sharding`, all
+per-env state stays resident (sharded the same way), and only scalar metrics
+are reduced with `pmean`-style collectives. The cards of one host are joined
+all to all, so the mesh is 1-D over `jax.devices()`.
 
 Because each env's MPC solve is independent, the sharded step has zero
-inter-chip communication in the hot path — the collectives appear only in
-`metrics_summary`, so scaling is linear by construction and the design goal
-is purely per-chip throughput.
+inter-device communication in the hot path — the collectives appear only in
+`metrics_summary` and the `with_metrics` step, so scaling is linear by
+construction and the design goal is per-device throughput.
 """
 
 from __future__ import annotations
@@ -67,67 +66,35 @@ def sharded_step(step_fn, mesh: Mesh):
 
 
 def shard_map_compat(f, mesh: Mesh, in_specs, out_specs):
-    """`jax.shard_map` with replication/VMA checking off, across jax
-    versions (check_vma on >= 0.7, check_rep before) — required for
-    bodies containing `pallas_call` (its outputs carry no VMA metadata).
-    Shared by the bench harnesses; `shard_map_step` uses the same logic.
-    """
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
-    try:
-        return shard_map(f, mesh=mesh, in_specs=in_specs,
+    """`jax.shard_map` with VMA checking off — required for bodies that
+    contain a foreign-function call (`ops/pdipm_fused.py`), whose outputs
+    carry no varying-axes metadata."""
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
                          out_specs=out_specs, check_vma=False)
-    except TypeError:  # pragma: no cover - older jax spelling
-        return shard_map(f, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_rep=False)
 
 
 def shard_map_step(step_fn, mesh: Mesh, with_metrics: bool = True):
     """Explicit-SPMD wrapper via `shard_map`: each device runs `step_fn` on
     its shard of the env batch (all pytree leaves split on their leading
     axis). Because per-env MPC solves are independent, the step body contains
-    no collectives; global scalar metrics are reduced with `pmean` over ICI
-    when `with_metrics` (the only cross-chip traffic in the system).
+    no collectives; the global mean cost is reduced with `pmean` when
+    `with_metrics` (the only cross-device traffic in the system).
 
-    step_fn: (state, *args) -> (state, aux...) with aux[-1 if with_metrics]
-    expected to be a per-env (local_B,) cost-like array whose global mean is
-    returned alongside. Complements `sharded_step` (the GSPMD variant) with
-    the collectives spelled out.
+    step_fn: (state, *args) -> (state, tau, mpc_out) with mpc_out.cost a
+    per-env (local_B,) array whose global mean is returned alongside.
+    Complements `sharded_step` (the GSPMD variant) with the collectives
+    spelled out.
     """
     spec = P(DATA_AXIS)
 
     def body(state, *args):
         out = step_fn(state, *args)
         if not with_metrics:
-            # A per-shard (4,) HybridStats counter leaf has NO valid
-            # batch-sharded out_spec: the P(DATA_AXIS) prefix would stitch
-            # the shards into a (4*n_devices,) array whose first four
-            # entries are silently shard 0's counts (review finding,
-            # round 5). The counters are an opt-in metric — strip them in
-            # the metrics-free path at the HELPER level so every caller
-            # (not just controller_step) is safe.
-            if (isinstance(out, tuple) and len(out) == 3
-                    and getattr(out[2], "hybrid_counts", None) is not None):
-                out = (out[0], out[1],
-                       out[2]._replace(hybrid_counts=None))
             return out
-        # out = (new_state, tau, mpc_out) with mpc_out.cost (local_B,)
         new_state, tau, mpc_out = out
         global_mean_cost = jax.lax.pmean(
             jnp.mean(mpc_out.cost), axis_name=DATA_AXIS
         )
-        if mpc_out.hybrid_counts is not None:
-            # Hybrid observability counters are per-SHARD (each device's
-            # solve_hybrid sees only its shard); psum them into global
-            # counts and move them out of mpc_out (whose leaves are
-            # batch-sharded, the wrong out_spec for a replicated (4,)
-            # vector).
-            counts = jax.lax.psum(
-                mpc_out.hybrid_counts, axis_name=DATA_AXIS)
-            mpc_out = mpc_out._replace(hybrid_counts=None)
-            return new_state, tau, mpc_out, (global_mean_cost, counts)
         return new_state, tau, mpc_out, global_mean_cost
 
     out_specs = (spec, spec, spec, P()) if with_metrics else spec
@@ -135,42 +102,40 @@ def shard_map_step(step_fn, mesh: Mesh, with_metrics: bool = True):
 
 
 def controller_step(core, mesh: Mesh, with_metrics: bool = False):
-    """The blessed sharded control step for a `BipedControllerCore`.
+    """The sharded control step for a `BipedControllerCore`.
 
     Pure-JAX solver backends go through GSPMD (`sharded_step`) when
-    `with_metrics=False`: the whole step is elementwise in the batch
-    axis, so XLA partitions it with zero collectives (verified by the
-    HLO check in `bench_mesh.py`). With `with_metrics=True` EVERY
-    backend routes through `shard_map` — the `pmean` metric reduction
-    needs a named mesh axis, which only shard_map provides.
+    `with_metrics=False`: the whole step is elementwise in the batch axis,
+    so XLA partitions it with zero collectives (checked on the compiled HLO
+    by `chip_smoke.py --four-cards` and `__graft_entry__.dryrun_multichip`).
+    With `with_metrics=True` every backend routes through `shard_map` — the
+    `pmean` metric reduction needs a named mesh axis.
 
-    The Pallas kernel backends go through `shard_map` instead: a
-    `pallas_call` lowers to a TPU custom call for which GSPMD has no
-    partitioning rule, so under a plain sharding constraint XLA may
-    replicate the kernel at FULL batch on every device (or fail to
-    propagate the sharding) — exactly the failure the zero-collective
-    check cannot see because it never compiles the kernel. The per-device
-    `shard_map` body sidesteps the question by construction: each device
-    runs the kernel on its own batch shard (`pallas_call` grid
-    batch/tile per shard), which is the behavior sharding is meant to
-    buy. Equivalence is pinned by
-    `tests/test_controller.py::test_sharded_pallas_step_matches_single_device`
-    and exercised by the driver dryrun (`__graft_entry__.dryrun_multichip`).
+    The fused solver ("fused_ric_aug") always goes through `shard_map`: its
+    foreign-function call has no GSPMD partitioning rule, so under a plain
+    sharding constraint XLA would gather the batch and run the kernel at
+    FULL batch on every device. The per-device `shard_map` body runs it on
+    the local shard by construction (pinned by
+    `tests/test_pdipm_fused.py::test_fused_shard_map_matches_single_device`).
     """
-    # (The per-shard hybrid counters are stripped by shard_map_step itself
-    # in the metrics-free path — opt-in psum'd metric with with_metrics.)
     fn = lambda st, o, tw, h: core.control_step(st, o, tw, h)
-    if core.mpc_cfg.solver.startswith("pallas"):
+    if with_metrics or core.solver == "fused_ric_aug":
         return shard_map_step(fn, mesh, with_metrics=with_metrics)
-    if with_metrics:
-        return shard_map_step(fn, mesh, with_metrics=True)
     return sharded_step(fn, mesh)
+
+
+def count_collectives(hlo_text: str) -> int:
+    """Cross-device collective ops in a compiled HLO module's text (the
+    hot-path contract is zero)."""
+    return sum(hlo_text.count(op) for op in
+               ("all-reduce", "all-gather", "reduce-scatter",
+                "collective-permute", "all-to-all"))
 
 
 def metrics_summary(values: jnp.ndarray, mesh: Mesh):
     """Global scalar metrics over a sharded (B,) array — mean/max/p50.
 
-    The only cross-chip communication in the system: an ICI all-reduce
+    The only cross-device communication in the system: an all-reduce
     materialized by XLA from these reductions.
     """
     sharding = batch_sharding(mesh)

@@ -1,15 +1,9 @@
 """Persistent compilation cache helper.
 
-Cold-compile costs on the v5e runtime (round-3 breakdown, BENCH.md
-"Compile time", `results/ab_compile.jsonl`): the shipped foot-split
-Pallas kernels take 13-23 s each, and the FULL chained bench program is
-~20 s of genuine XLA+Mosaic compile (the scan body compiles once). The
-minutes sometimes observed on a first run (~300 s in round 2's bench
-log) are the shared TPU runtime's single-client claim-queue drain, not
-compilation. The JAX persistent cache brings every repeat-process
-compile down to seconds, which is the practical answer to the
-reference's 3-hour-per-variant compile problem: first build of a
-variant costs seconds-to-minutes once, then it is cached on disk.
+The JAX persistent cache brings every repeat-process compile of the
+controller steps down to seconds — the practical answer to the reference's
+hours-per-variant CUDA code generation: the first build of a variant costs
+seconds to minutes once, then it is found on disk.
 """
 
 from __future__ import annotations
@@ -17,25 +11,26 @@ from __future__ import annotations
 import os
 
 
-def enable_compilation_cache(cache_dir: str | None = None) -> str:
+def enable_compilation_cache() -> str:
     """Enable the JAX persistent compilation cache (idempotent).
 
-    Defaults to `<repo>/.jax_cache` so benches and examples share warm
-    kernels across processes and rounds.
+    Where `JAX_COMPILATION_CACHE_DIR` is set, JAX already keeps its cache
+    there and this sets no other directory. Otherwise the cache lives at the
+    fixed `<repo>/.jax_cache`, so benchmarks and examples share compiled
+    programs across processes (the path is part of the cache key, so it
+    must not move). Returns the directory in use.
     """
     import jax
 
-    if cache_dir is None:
+    cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not cache_dir:
         cache_dir = os.path.join(
             os.path.dirname(os.path.dirname(os.path.dirname(
                 os.path.abspath(__file__)))),
             ".jax_cache",
         )
-    os.makedirs(cache_dir, exist_ok=True)
-    try:
+        os.makedirs(cache_dir, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # pragma: no cover - older jax versions
-        pass
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     return cache_dir

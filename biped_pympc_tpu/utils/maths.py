@@ -1,6 +1,6 @@
 """Batched rotation / quaternion / skew utilities (pure JAX).
 
-TPU-native re-expression of the reference's torch utilities
+JAX re-expression of the reference's torch utilities
 (`/root/reference/biped_pympc/utils/math_utils.py:3-177`). All functions are
 written single-sample and are `jax.vmap`/`jax.jit` friendly; most callers vmap
 them over a leading env-batch axis. Quaternions are (w, x, y, z).

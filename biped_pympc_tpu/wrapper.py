@@ -1,4 +1,4 @@
-"""RL-facing `MPCController` facade — the reference's public API, TPU-native.
+"""RL-facing `MPCController` facade — the reference's public API in JAX.
 
 Mirrors `/root/reference/biped_pympc/mpc_wrapper.py:4-205` method-for-method
 and property-for-property. The class is a thin stateful shell around the
@@ -186,21 +186,6 @@ class MPCController:
         return self._last_mpc.grf_world
 
     @property
-    def hybrid_stats(self) -> dict:
-        """Per-solve hybrid observability (solver="pallas_hybrid" only):
-        {'flagged', 'nonfinite', 'resolved', 'dropped_nonfinite'} ints from
-        the most recent `run_mpc`. `dropped_nonfinite > 0` means the
-        hybrid's finiteness guarantee LAPSED on that solve (more non-finite
-        envs than the re-solve budget) — the operational signal the
-        round-4 VERDICT asked for. Empty dict for other solvers or before
-        the first solve."""
-        if self._last_mpc is None or self._last_mpc.hybrid_counts is None:
-            return {}
-        c = np.asarray(self._last_mpc.hybrid_counts)
-        return {"flagged": int(c[0]), "nonfinite": int(c[1]),
-                "resolved": int(c[2]), "dropped_nonfinite": int(c[3])}
-
-    @property
     def solver_residuals(self) -> jnp.ndarray:
         """(B, 4) final PDIPM residual norms [||rx||, ||rs||, ||re||, mu]
         from the most recent `run_mpc`; +inf until the first call."""
@@ -218,12 +203,14 @@ class MPCController:
         robot = self.core.robot
         lin = jnp.sum(w[:, :, :3], axis=1) / robot.mass
         rot = self.state.est.rotation_body
-        i_world = jnp.einsum(
-            "bij,jk,blk->bil", rot, jnp.asarray(robot.i_body, w.dtype), rot
-        )
-        ang = jnp.einsum(
-            "bij,bj->bi", linalg.inverse_3x3(i_world), jnp.sum(w[:, :, 3:], axis=1)
-        )
+        with jax.default_matmul_precision("highest"):  # no TF32 (see _step)
+            i_world = jnp.einsum(
+                "bij,jk,blk->bil", rot, jnp.asarray(robot.i_body, w.dtype), rot
+            )
+            ang = jnp.einsum(
+                "bij,bj->bi", linalg.inverse_3x3(i_world),
+                jnp.sum(w[:, :, 3:], axis=1)
+            )
         return jnp.concatenate([lin, ang], axis=1)
 
     @property

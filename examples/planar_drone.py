@@ -1,6 +1,6 @@
 """Massively-batched planar-drone LQR sweeps and region-of-attraction.
 
-TPU-native re-expression of the reference CusADi examples
+JAX re-expression of the reference CusADi examples
 (`/root/reference/biped_pympc/cusadi/examples/planar_drone_LQR.py:1-106` and
 `planar_drone_ROA.py:1-62`): thousands of closed-loop simulations in
 parallel, sweeping controller weights (Q, R), model parameters (mass) and

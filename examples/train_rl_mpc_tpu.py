@@ -1,20 +1,19 @@
-"""RL-MPC training with the environment ON the device (VERDICT r3 item 5).
+"""RL-MPC training with the environment ON the device.
 
 `train_rl_mpc.py` proves the ARS learning loop but evaluates the population
-through the host `RlMpcEnv` — one dispatch per controller call, so the
-987k env-steps/s the compiled rollout measures (`tpu_rollout.py`) never
-reaches training. Here the entire population evaluation is ONE jitted
+through the host `RlMpcEnv` — one dispatch per controller call, so the rate
+of the compiled rollout (`tpu_rollout.py`) never reaches training. Here the entire population evaluation is ONE jitted
 device program (`rl_env_tpu.make_rollout`): every perturbation direction
 owns a group of envs carrying its own policy parameters as data, the full
 `steps x decimation` closed loop (MPC solves included) runs in a `lax.scan`,
 and the only host work per ARS iteration is the tiny (10 x 14) weight
 update. This is the RL-MPC product shape the reference advertises
-(`README.md:1-3`) on TPU terms: policy update is the only host boundary.
+(`README.md:1-3`) on device terms: policy update is the only host boundary.
 
 Run:  python examples/train_rl_mpc_tpu.py [--iters 10] [--dirs 4]
           [--envs-per 4] [--steps 40] [--bench]
-`--bench` appends a learning-curve + throughput artifact to
-results/train_rl_mpc_tpu.jsonl.
+`--bench` appends a learning-curve + throughput artifact (with the device it
+ran on) to results/train_rl_mpc_tpu.jsonl.
 """
 
 from __future__ import annotations
@@ -58,21 +57,19 @@ def _apply_newton_iterations(core, n):
 
 
 def make_sharded_training(mesh, num_envs: int, steps: int = 40,
-                          solver: str = "pallas_ric_aug",
+                          solver: str = "auto",
                           newton_iterations: int | None = None,
                           plant_mass_scale: float = 1.0,
                           matrix_residual: bool = False):
     """Population evaluation with the ENV AXIS SHARDED over a device mesh.
 
-    The round-4 trainer ran its single-dispatch rollout on one chip while
-    the mesh machinery sat one file away (VERDICT item 4); this composes
-    them: the whole ARS population rollout — per-env policy matrices as
+    The whole ARS population rollout — per-env policy matrices as
     data, MPC solves included — runs under `shard_map`, each device
     evaluating its shard of the population. The rollout body is per-env
     independent, so the hot path has zero collectives (same contract the
     dryrun asserts); the weight update on the host is the only global
-    synchronization point, exactly BASELINE.json's v5e-16 deployment
-    shape applied to the product training loop.
+    synchronization point — the multi-device deployment shape applied to
+    the product training loop.
 
     Returns (sharded_rollout, carry0, w0): jitted
     rollout(carry, w_per_env) -> (carry, returns (B,)), the sharded
@@ -97,7 +94,7 @@ def make_sharded_training(mesh, num_envs: int, steps: int = 40,
 
 def train(iters: int = 10, n_dirs: int = 4, envs_per: int = 4,
           steps: int = 40, step_size: float = 0.02, noise: float = 0.05,
-          solver: str = "pallas_ric_aug", seed: int = 0,
+          solver: str = "auto", seed: int = 0,
           plant_mass_scale: float = 1.0, matrix_residual: bool = False,
           plant_force_scale=None, newton_iterations: int = 20,
           verbose: bool = True, emit=None, mesh=None):
@@ -121,8 +118,7 @@ def train(iters: int = 10, n_dirs: int = 4, envs_per: int = 4,
                   matrix_residual=matrix_residual,
                   plant_force_scale=plant_force_scale)
     env_step, reset_all, rl_obs, core = make_device_env(num_envs, **env_kw)
-    # Round 5: 10 is the measured closed-loop-viable HECTOR point
-    # (BENCH.md "how many Newton iterations").
+    # 10 iterations is a closed-loop-viable HECTOR setting.
     _apply_newton_iterations(core, newton_iterations)
     rollout_fn = make_rollout(env_step, rl_obs, steps)
     if mesh is not None:
@@ -189,7 +185,7 @@ def main():
     p.add_argument("--dirs", type=int, default=4)
     p.add_argument("--envs-per", type=int, default=4)
     p.add_argument("--steps", type=int, default=40)
-    p.add_argument("--solver", default="pallas_ric_aug")
+    p.add_argument("--solver", default="auto")
     p.add_argument("--mass-error", type=float, default=1.0,
                    help="plant mass scale (model-error compensation task: "
                         "the policy must learn SRBD residuals that close "
@@ -203,8 +199,8 @@ def main():
                         "an input-proportional model error the constant "
                         "accel residuals cannot represent)")
     p.add_argument("--newton-iters", type=int, default=20,
-                   help="PDIPM iterations (10 = measured viable HECTOR "
-                        "speed point, BENCH.md round 5)")
+                   help="PDIPM iterations (10 is closed-loop viable for "
+                        "HECTOR)")
     p.add_argument("--noise", type=float, default=0.05)
     p.add_argument("--step-size", type=float, default=0.02)
     p.add_argument("--bench", action="store_true",

@@ -1,6 +1,6 @@
 // CPU baseline: batched SRBD-MPC QP assembly + Mehrotra PDIPM, C++/OpenMP.
 //
-// TPU-native-framework counterpart of the reference's native CPU benchmark
+// This framework's counterpart of the reference's native CPU benchmark
 // drivers (`/root/reference/biped_pympc/cusadi/src/benchmark_functions/
 // evaluate_serial_cpu.cpp` / `evaluate_parallel_cpu.cpp`): evaluates the same
 // mathematical pipeline as the JAX path — closed-form QP assembly

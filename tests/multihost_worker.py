@@ -86,40 +86,38 @@ print(f"MULTIHOST_OK pid={pid} devices={len(jax.devices())} "
       f"mean_cost={float(mean_cost):.4f}", flush=True)
 
 # ---------------------------------------------------------------------
-# Phase 2 (round 3): the SHIPPED Pallas kernel on the same 2-process
-# global mesh. `controller_step` routes it through shard_map, so each
-# process's devices run the kernel (interpret-mode on CPU) on exactly
-# their batch shards, and the only cross-process traffic is the pmean
-# metric — the DCN-path analog of the real multi-host deployment for
-# the production solver, not just the pure-JAX backend.
+# Phase 2: the fused solver on the same 2-process global mesh.
+# `controller_step` routes it through shard_map, so each process's devices
+# run the kernel (its CPU target here) on exactly their batch shards, and
+# the only cross-process traffic is the pmean metric.
 # ---------------------------------------------------------------------
-core_pl = BipedControllerCore(
-    cfg, MPCConf(solver="pallas_ric_aug", verbose=False), gait_id=2
+core_f = BipedControllerCore(
+    cfg, MPCConf(solver="fused_ric_aug", verbose=False), gait_id=2
 )
-# Fewer Newton iterations keep the interpreted worker quick; the sharded
-# program structure under test is iteration-count-independent.
-core_pl.opts = core_pl.opts._replace(iterations=4)
+# Fewer Newton iterations keep the worker quick; the sharded program
+# structure under test is iteration-count-independent.
+core_f.opts = core_f.opts._replace(iterations=4)
 
-_, tau_ref_pl, out_ref_pl = core_pl.control_step(
-    core_pl.init_state(B), jnp.asarray(obs), jnp.asarray(twist),
+_, tau_ref_f, out_ref_f = core_f.control_step(
+    core_f.init_state(B), jnp.asarray(obs), jnp.asarray(twist),
     jnp.asarray(height)
 )
-tau_ref_pl = np.asarray(tau_ref_pl)
-cost_ref_pl = float(np.mean(np.asarray(out_ref_pl.cost)))
+tau_ref_f = np.asarray(tau_ref_f)
+cost_ref_f = float(np.mean(np.asarray(out_ref_f.cost)))
 
-state_gp = jax.tree.map(
-    lambda a: to_global(np.asarray(a)[local]), core_pl.init_state(B)
+state_gf = jax.tree.map(
+    lambda a: to_global(np.asarray(a)[local]), core_f.init_state(B)
 )
-step_pl = pmesh.controller_step(core_pl, mesh, with_metrics=True)
-_, tau_gp, _, mean_cost_pl = step_pl(
-    state_gp, to_global(obs[local]), to_global(twist[local]),
+step_f = pmesh.controller_step(core_f, mesh, with_metrics=True)
+_, tau_gf, _, mean_cost_f = step_f(
+    state_gf, to_global(obs[local]), to_global(twist[local]),
     to_global(height[local]),
 )
-for shard in tau_gp.addressable_shards:
+for shard in tau_gf.addressable_shards:
     start = shard.index[0].start or 0
     got = np.asarray(shard.data)
-    want = tau_ref_pl[start: start + got.shape[0]]
+    want = tau_ref_f[start: start + got.shape[0]]
     np.testing.assert_allclose(got, want, atol=1e-5)
-np.testing.assert_allclose(float(mean_cost_pl), cost_ref_pl, rtol=1e-5)
-print(f"MULTIHOST_PALLAS_OK pid={pid} devices={len(jax.devices())} "
-      f"mean_cost={float(mean_cost_pl):.4f}", flush=True)
+np.testing.assert_allclose(float(mean_cost_f), cost_ref_f, rtol=1e-5)
+print(f"MULTIHOST_FUSED_OK pid={pid} devices={len(jax.devices())} "
+      f"mean_cost={float(mean_cost_f):.4f}", flush=True)

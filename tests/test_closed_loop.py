@@ -108,7 +108,7 @@ def test_t1_reference_parity_ik_walks():
 
 
 def test_t1_obs_ik_knob_removes_height_bias():
-    """VERDICT r3 item 7 (bias exposure): the plain-T1 closed-loop height
+    """Bias exposure: the plain-T1 closed-loop height
     bias is produced by the approximate IK standing in for joint encoders
     in the sim observation path, not by the controller's own swing IK.
     With obs_ik="newton" (true-encoder model) the plain-T1 controller

@@ -191,6 +191,49 @@ def test_unknown_solver_rejected():
         )
 
 
+@pytest.mark.parametrize("platform,dtype,conf,want", [
+    ("cpu", jnp.float32, {}, "ric_aug"),
+    ("gpu", jnp.float32, {}, "fused_ric_aug"),
+    ("gpu", jnp.float64, {}, "ric_aug"),
+    ("gpu", jnp.float32, {"adaptive_tol": 1e-2}, "ric_aug"),
+    ("gpu", jnp.float32, {"solver_refine_steps": 2}, "ric_aug"),
+    ("gpu", jnp.float32, {"solver_foot_split": False}, "ric_aug"),
+    ("gpu", jnp.float32, {"solver_kkt_scale": "jacobi"}, "ric_aug"),
+    ("gpu", jnp.float32, {"solver": "tridiag_aug"}, "tridiag_aug"),
+    ("cpu", jnp.float32, {"solver": "fused_ric_aug"}, "fused_ric_aug"),
+])
+def test_auto_solver_resolution(monkeypatch, platform, dtype, conf, want):
+    """"auto" runs the fused kernel only where it was measured faster (a
+    GPU, float32, fixed iterations, its one option set); an explicit name
+    is kept as given."""
+    from biped_pympc_tpu.control import controller
+
+    monkeypatch.setattr(controller.jax, "default_backend", lambda: platform)
+    cfg = MPCConf(verbose=False, **conf)
+    assert controller.resolve_solver(cfg, dtype) == want
+
+
+def test_controller_runs_the_resolved_solver():
+    ctrl = MPCController(ControllerConf(), MPCConf(verbose=False),
+                         num_envs=1, gait_id=1)
+    assert ctrl.core.solver == "ric_aug"  # "auto" on the CPU
+    assert ctrl.core.opts.backend == "ric_aug"
+
+
+@pytest.mark.parametrize("old,new", [
+    ("pallas_ric_aug", "ric_aug"), ("pallas_hybrid", "ric_aug"),
+    ("pallas", "tridiag"),
+])
+def test_removed_solver_names_point_to_replacement(old, new):
+    """A solver name of the removed Pallas kernel family raises and names
+    the solver that replaces it."""
+    with pytest.raises(ValueError, match=f"removed; use '{new}'"):
+        MPCController(
+            ControllerConf(), MPCConf(solver=old, verbose=False),
+            num_envs=1, gait_id=1,
+        )
+
+
 def test_t1_standing():
     B = 2
     ctrl = MPCController(
@@ -243,44 +286,6 @@ def test_sharded_step_matches_single_device():
     np.testing.assert_allclose(
         float(summary["mean"]), float(np.mean(np.asarray(out_single.cost))),
         rtol=1e-5,
-    )
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize(
-    "solver", ["pallas_ric_aug", "pallas_ric", "pallas_hybrid"])
-def test_sharded_pallas_step_matches_single_device(solver):
-    """The shipped Pallas kernel under mesh sharding (round-2 verdict item
-    1): the `controller_step`-routed (shard_map) control step with the
-    Pallas backends equals the unsharded step. On the CPU test mesh the
-    kernels run under the Pallas interpreter automatically
-    (`pdipm_pallas._interpret_default`); each device's `pallas_call` sees
-    only its 2-env shard, which is exactly the partitioning the TPU
-    deployment relies on."""
-    from biped_pympc_tpu.control.controller import BipedControllerCore
-    from biped_pympc_tpu.parallel import mesh as pmesh
-
-    assert jax.device_count() >= 8, "conftest sets 8 virtual CPU devices"
-    cfg = MPCConf(solver=solver, newton_iterations=4, verbose=False)
-    core = BipedControllerCore(ControllerConf(), cfg, gait_id=2)
-    B = 16
-    state = core.init_state(B)
-    obs = jnp.asarray(_hector_obs(B))
-    twist = jnp.zeros((B, 3), jnp.float32).at[:, 0].set(0.2)
-    height = jnp.full((B,), 0.55, jnp.float32)
-
-    _, tau_single, out_single = core.control_step(state, obs, twist, height)
-
-    mesh = pmesh.make_mesh(jax.devices()[:8])
-    step = pmesh.controller_step(core, mesh)
-    _, tau_sm, out_sm = step(core.init_state(B), obs, twist, height)
-
-    assert np.isfinite(np.asarray(tau_sm)).all()
-    np.testing.assert_allclose(
-        np.asarray(tau_sm), np.asarray(tau_single), atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_sm.wrench), np.asarray(out_single.wrench), atol=1e-4
     )
 
 
@@ -379,42 +384,3 @@ def test_yaw_mode_matches_reference_at_zero_yaw():
         outs[frame] = np.asarray(ctrl.state.leg_cmd.wrench_ff)
     np.testing.assert_allclose(outs["yaw"], outs["world"],
                                atol=1e-3, rtol=1e-4)
-
-
-@pytest.mark.slow
-def test_shard_map_hybrid_counts_psum():
-    """Round-5 hybrid observability under sharding: with metrics on, the
-    per-shard HybridStats counters are psum'd into global counts across
-    the 8-device mesh and returned as a replicated (4,) vector, while the
-    batch-sharded MpcOutput drops its per-shard copy."""
-    from biped_pympc_tpu.control.controller import BipedControllerCore
-    from biped_pympc_tpu.parallel import mesh as pmesh
-
-    assert jax.device_count() >= 8
-    core = BipedControllerCore(
-        ControllerConf(),
-        MPCConf(solver="pallas_hybrid", newton_iterations=4,
-                hybrid_flag_tol=-1.0, hybrid_budget=1, verbose=False),
-        gait_id=2,
-    )
-    B = 16
-    obs = jnp.asarray(_hector_obs(B))
-    twist = jnp.zeros((B, 3), jnp.float32).at[:, 0].set(0.2)
-    height = jnp.full((B,), 0.55, jnp.float32)
-
-    mesh = pmesh.make_mesh(jax.devices()[:8])
-    step = pmesh.controller_step(core, mesh, with_metrics=True)
-    _, _, out_sm, (mean_cost, counts) = step(
-        core.init_state(B), obs, twist, height)
-    assert out_sm.hybrid_counts is None  # moved out of the sharded tree
-    counts = np.asarray(counts)
-    # flag_tol=-1 flags everything: 16 global flagged; budget=1 PER SHARD
-    # (documented semantics) -> 8 devices x 1 = 8 resolved.
-    assert counts[0] == B, counts
-    assert counts[1] == 0 and counts[3] == 0, counts
-    assert counts[2] == 8, counts
-
-    # Without metrics the counters are stripped (opt-in metric).
-    step_plain = pmesh.controller_step(core, mesh, with_metrics=False)
-    _, _, out_plain = step_plain(core.init_state(B), obs, twist, height)
-    assert out_plain.hybrid_counts is None

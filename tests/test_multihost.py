@@ -2,10 +2,10 @@
 
 The reference has no distributed capability at all (SURVEY.md section 2);
 this framework's scaling design shards the env batch over every chip of a
-slice. The in-process tests cover the 8-virtual-device single-process case;
+mesh. The in-process tests cover the 8-virtual-device single-process case;
 here two OS processes (4 virtual CPU devices each) form one 8-device global
 mesh via `jax.distributed` — collectives (the `pmean` metric) cross the
-process boundary over Gloo, standing in for DCN. Each worker checks its
+process boundary over Gloo. Each worker checks its
 addressable output shards against a locally-computed un-sharded reference
 (`multihost_worker.py`).
 """
@@ -60,6 +60,6 @@ def test_two_process_global_mesh():
     for pid, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"worker {pid} failed:\n{out[-3000:]}"
         assert f"MULTIHOST_OK pid={pid} devices=8" in out, out[-3000:]
-        # Round 3: the shipped Pallas kernel on the same global mesh
-        # (shard_map route, interpret-mode kernels on the CPU devices).
-        assert f"MULTIHOST_PALLAS_OK pid={pid} devices=8" in out, out[-3000:]
+        # The fused solver on the same global mesh (shard_map route, its
+        # CPU target on the CPU devices).
+        assert f"MULTIHOST_FUSED_OK pid={pid} devices=8" in out, out[-3000:]

@@ -1,4 +1,4 @@
-"""Packaging smoke test (round-5 VERDICT item 8).
+"""Packaging smoke test.
 
 Builds the wheel from pyproject.toml, installs it into a CLEAN venv (with
 system site-packages for the jax/numpy runtime — no network), and drives

@@ -5,34 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from biped_pympc_tpu.models.srbd import SrbdLin
+from bench_common import make_converged_qp
 from biped_pympc_tpu.ops import pdipm, qp as qps, reference_pdipm
 
 T = 10
 
 
 def _make_qp(seed=0, dtype=jnp.float64, contact=None, vx=0.3):
-    lin = SrbdLin(
-        rot_body=jnp.eye(3, dtype=dtype),
-        inertia_world=jnp.asarray(np.diag([0.5413, 0.52, 0.0691]), dtype=dtype),
-        body_pos=jnp.asarray([0.0, 0.0, 0.55], dtype=dtype),
-        foot_pos=jnp.asarray([[0.05, 0.08, 0.0], [0.05, -0.08, 0.0]], dtype=dtype),
-        mass=jnp.asarray(13.856, dtype=dtype),
-        residual_lin_accel=jnp.zeros(3, dtype=dtype),
-        residual_ang_accel=jnp.zeros(3, dtype=dtype),
-    )
-    rng = np.random.default_rng(seed)
-    x0 = jnp.asarray(rng.uniform(-0.05, 0.05, 12), dtype=dtype)
-    x0 = x0.at[5].add(0.5)
-    x_ref = jnp.zeros((T, 12), dtype=dtype).at[:, 5].set(0.55).at[:, 9].set(vx)
-    if contact is None:
-        contact = jnp.ones((T, 2), dtype=dtype)
-    q = jnp.asarray([150.0, 150, 250, 100, 100, 250, 1, 1, 5, 10, 10, 1], dtype=dtype)
-    r = jnp.full(12, 1e-5, dtype=dtype).at[6:].set(1e-4)
-    return qps.build_qp(
-        lin, x0, x_ref, jnp.asarray(contact, dtype=dtype),
-        jnp.asarray(0.025, dtype=dtype), jnp.asarray(1.0, dtype=dtype), q, r, T
-    )
+    return make_converged_qp(dtype, seed=seed, contact=contact, vx=vx,
+                             horizon=T)
 
 
 def test_structured_operators_match_dense():
@@ -135,7 +116,7 @@ def test_pdipm_aug_backend_matches_golden_f64(backend):
 
 
 def test_pdipm_float32_grf_accuracy():
-    """f32 TPU path (augmented backend + 1 refinement) tracks the f64 golden.
+    """f32 path (augmented backend + 1 refinement) tracks the f64 golden.
 
     The augmented stage formulation keeps the complementarity scaling on
     diagonal entries instead of condensing G^T W^-1 G (which squares the
@@ -177,7 +158,7 @@ def test_combined_corrector_matches_delta_form():
     (`sparse_pdipm_solver.py:476-486`); because iterative refinement is a
     linear map, one refined solve of the summed rhs is algebraically
     identical at one fewer refined solve per iteration. Pinned here at f64
-    so the Pallas kernels' faster default is covered by golden parity."""
+    by golden parity."""
     qp = _make_qp()
     for backend in ("tridiag", "tridiag_aug"):
         for refine in (0, 1):
@@ -198,8 +179,7 @@ def test_sum_refine_corrector_matches_delta_form():
     Unrefined affine + unrefined corrector, then refinement of the summed
     direction against the full 4-row KKT residual — linear-algebraically
     the same direction. (Rejected as the f32 default: the unrefined affine
-    predictor degrades sigma/centering on near-degenerate problems; see
-    BENCH.md.)"""
+    predictor degrades sigma/centering on near-degenerate problems.)"""
     qp = _make_qp()
     for backend in ("tridiag", "tridiag_aug"):
         for refine in (0, 1):
@@ -230,7 +210,7 @@ def test_solve_adaptive_batch_matches_fixed():
     np.testing.assert_allclose(np.asarray(loose.x), np.asarray(one),
                                atol=1e-9)
     # Non-divisible cap runs EXACTLY iterations steps (12 = 2x5 + rem 2),
-    # never a rounded-up 15 (the f32 kernels rely on the cap; BENCH.md).
+    # never a rounded-up 15.
     o12 = opts._replace(iterations=12, iterations_per_launch=5)
     fixed12 = jax.vmap(lambda q: pdipm.solve(q, o12).x)(batch)
     chunked12 = pdipm.solve_adaptive_batch(batch, o12, tol=0.0)
@@ -258,7 +238,7 @@ def test_foot_split_exactness():
 def test_jacobi_kkt_scale_is_exact_preconditioning():
     """kkt_scale="jacobi" must change NOTHING algebraically: at f64 the
     scaled factorization reproduces the unscaled iterates to roundoff
-    (K^-1 = D (D K D)^-1 D exactly — VERDICT r3 item 1)."""
+    (K^-1 = D (D K D)^-1 D exactly)."""
     qp = _make_qp(seed=5, contact=np.concatenate(
         [np.tile([[1.0, 0.0]], (5, 1)), np.tile([[0.0, 1.0]], (5, 1))]))
     # Tolerance note: the identity is exact PER FACTORIZATION; over 20
@@ -283,7 +263,7 @@ def test_ric_aug_core_solve_matches_ric_aug():
     product backend because its u-first Schur complement S = -(W + V V^T)
     is rank-deficient on swing feet (all 8 inequality rows active with a
     rank-4 per-foot G) — explicit S^-1 loses the solution there, measured
-    as NaN at f32 and ~0.5 end-to-end drift at f64 (BENCH.md round 4)."""
+    as NaN at f32 and ~0.5 end-to-end drift at f64."""
     from biped_pympc_tpu.ops.pdipm import (
         PdipmState, _factor_ric_aug, _solve_ric_aug,
         _factor_ric_aug_core, _solve_ric_aug_core, N_INEQ_PER_STAGE)
@@ -330,18 +310,13 @@ def test_kkt_error_criterion():
 
 
 def test_unknown_backend_rejected():
-    """The solver layers validate opts.backend themselves (round-4 review
-    finding: after narrowing the valid set, the dispatch's trailing else
+    """The solver layer validates opts.backend itself (after narrowing the
+    valid set, the dispatch's trailing else
     would otherwise silently run tridiag for a stale string like the
     removed "bcr" — mislabeling benchmarks)."""
-    from biped_pympc_tpu.ops import pdipm_pallas as pp
-
     qp = _make_qp()
     with pytest.raises(ValueError, match="unknown pdipm backend"):
         pdipm.solve(qp, pdipm.PdipmOptions(backend="bcr"))
-    batch = jax.tree.map(lambda *xs: jnp.stack(xs), qp, qp)
-    with pytest.raises(ValueError, match="unknown Pallas pdipm backend"):
-        pp.solve(batch, pdipm.PdipmOptions(backend="bcr"), tile=2)
 
 
 def test_df_residual_accuracy():
@@ -406,24 +381,14 @@ def test_df_residual_accuracy():
 def test_df_residual_rejected_on_condensed_backends():
     """refine_residual='df' is aug-only; the condensed backends must
     reject it loudly instead of silently running the f32 residual."""
-    from biped_pympc_tpu.ops import pdipm_pallas as pp
-
     qp = _make_qp(dtype=jnp.float32)
     for backend in ("ric", "tridiag", "dense"):
         with pytest.raises(ValueError, match="aug"):
             pdipm.solve(qp, pdipm.PdipmOptions(
                 backend=backend, refine_steps=1, refine_residual="df"))
-    batch = jax.tree.map(lambda a: a[None], qp)
-    with pytest.raises(ValueError, match="aug"):
-        pp.solve(batch, pdipm.PdipmOptions(
-            backend="ric", refine_steps=1, refine_residual="df"), tile=1)
     # sum_refine refines in its own outer full-KKT loop (plain f32
     # residuals) — df would be silently ignored there; rejected instead.
     with pytest.raises(ValueError, match="sum_refine"):
         pdipm.solve(qp, pdipm.PdipmOptions(
             backend="ric_aug", refine_steps=1, refine_residual="df",
             corrector_form="sum_refine"))
-    with pytest.raises(ValueError, match="sum_refine"):
-        pp.solve(batch, pdipm.PdipmOptions(
-            backend="ric_aug", refine_steps=1, refine_residual="df",
-            corrector_form="sum_refine"), tile=1)

@@ -1,8 +1,8 @@
 """LIVE differential parity vs the reference's runnable torch components.
 
-Round-5 closure of VERDICT "missing" item 1: instead of hand-captured golden
-literals, these tests import `/root/reference/biped_pympc` directly (torch
-CPU) and compare our JAX control stack against the actually-running reference
+Instead of hand-captured golden literals, these tests import the
+reference's `biped_pympc` package directly (torch CPU, from `REF_ROOT`)
+and compare our JAX control stack against the actually-running reference
 program over randomized states — math utils, HECTOR kinematics, gait
 generator, estimator, Raibert/Bezier swing machinery, leg-controller torque
 assembly, and a ~500-tick lockstep rollout of the full `BipedController`

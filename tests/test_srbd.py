@@ -153,7 +153,7 @@ def test_matrix_residual_enters_before_discretization():
 def test_mixed_dtype_leaves_no_future_warning():
     """f64 residual/parameter leaves into an f32 model must not rely on
     scatter promotion (jax FutureWarning, future hard error): the builder
-    casts every SrbdLin leaf to the rot_body dtype (VERDICT r3 item 8)."""
+    casts every SrbdLin leaf to the rot_body dtype."""
     import warnings
 
     lin64 = _lin(dtype=jnp.float64)

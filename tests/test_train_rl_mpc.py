@@ -35,8 +35,7 @@ def test_ars_trains_and_updates_policy():
 
 def test_device_env_matches_host_env():
     """One population evaluation, host loop vs the single-dispatch device
-    rollout (VERDICT r3 item 5 'test pinning host-loop == on-device
-    returns for one iteration'): same per-env policies, same step count,
+    rollout (host-loop == on-device returns for one iteration): same per-env policies, same step count,
     same solver -> same per-env returns up to f32-vs-mixed-f64 plant
     drift over the rollout."""
     import jax.numpy as jnp
@@ -131,7 +130,7 @@ def test_device_env_matrix_residual_actions():
 
 
 def test_sharded_training_rollout_matches_single_device():
-    """Round-5 VERDICT item 4: the ARS population evaluation sharded over
+    """The ARS population evaluation sharded over
     the 8-virtual-device mesh returns the SAME per-env returns as the
     single-device rollout (per-env independence => sharding is a pure
     layout change)."""
@@ -176,7 +175,7 @@ def test_train_with_mesh_runs_ars_iteration():
 
 
 def test_matrix_residual_represents_mass_error_exactly():
-    """Round-5 VERDICT item 5 mechanism check: a 30% plant mass error is
+    """Mechanism check: a 30% plant mass error is
     EXACTLY representable by the B-matrix force-effectiveness action dims
     (true v_dot response F/(1.3 m) == modeled (1 + 0.3 a)/m F at
     a = (1/1.3 - 1)/0.3), while a constant accel residual can only match

@@ -162,7 +162,7 @@ def test_world_frame_swing_reference():
 
 
 def test_checkpoint_structure_mismatch_rejected(tmp_path):
-    """ADVICE r4: a checkpoint saved after set_srbd_residual must not load
+    """A checkpoint saved after set_srbd_residual must not load
     silently into a residual-free controller (and vice versa) — the saved
     treedef is validated and the error names set_srbd_residual."""
     import numpy as _np

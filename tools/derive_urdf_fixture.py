@@ -9,7 +9,7 @@ the KINEMATIC TREE — joint connectivity, origins, axes and types
 kinematics-only projection: every <link> reduced to its name, every
 <joint> reduced to {type, parent, child, origin, axis}. That keeps the
 standalone repo able to regenerate the T1 chain constants and run the
-parser tests (round-2 verdict "What's missing" item 1) without copying
+parser tests without copying
 the asset wholesale.
 
 Regenerate (only when the reference model changes):

@@ -7,9 +7,11 @@ artifacts `bench_common.make_emitter` writes and renders PNG figures
 into results/plots/:
 
   sweep.png              units/s vs batch per method  (bench_sweep.jsonl)
-  weak_scaling.png       solves/s vs device count     (bench_mesh.jsonl)
-  compile_breakdown.png  cold-compile seconds/layer   (ab_compile.jsonl)
   headline_history.png   bench.py headline over runs  (bench.jsonl)
+  training.png           on-device ARS learning curve (train_rl_mpc_tpu.jsonl)
+
+Plot only rows measured on the device you mean to show: every run's header
+row names the device it ran on.
 
 Only figures whose artifact exists are produced; reruns overwrite.
 Usage: python tools/plot_results.py [--results-dir results]
@@ -110,66 +112,6 @@ def plot_sweep(rows, out):
     return True
 
 
-def plot_weak_scaling(rows, out):
-    recs = [r for r in rows if "devices" in r and "solves_per_s" in r]
-    if not recs:
-        return False
-    latest = {}
-    for r in recs:
-        latest[(r.get("solver", "ric"), r["devices"])] = r
-    solvers = sorted({k[0] for k in latest})
-    fig, ax = plt.subplots(figsize=(6, 4), dpi=150)
-    for i, s in enumerate(solvers):
-        pts = sorted(
-            (k[1], v["solves_per_s"])
-            for k, v in latest.items() if k[0] == s
-        )
-        xs, ys = zip(*pts)
-        ax.plot(xs, ys, "-o", color=SERIES[i % len(SERIES)], linewidth=2,
-                markersize=5, label=s, zorder=3)
-    _style(ax, "devices (virtual CPU mesh)", "solves / s",
-           "Weak scaling of the sharded MPC step")
-    if len(solvers) >= 2:
-        ax.legend(frameon=False, fontsize=8, labelcolor=TEXT)
-    fig.tight_layout()
-    fig.savefig(out)
-    plt.close(fig)
-    return True
-
-
-def plot_compile(rows, out):
-    recs = [r for r in rows if "stage" in r and "compile_s" in r]
-    if not recs:
-        return False
-    latest = {}
-    for r in recs:
-        latest[r["stage"]] = r
-    order = [s for s in ("kernel", "assemble", "run_mpc", "chain20")
-             if s in latest] or list(latest)
-    fig, ax = plt.subplots(figsize=(6, 3.2), dpi=150)
-    ys = range(len(order))
-    lower = [latest[s].get("lower_s", 0.0) for s in order]
-    comp = [latest[s]["compile_s"] for s in order]
-    ax.barh(ys, lower, height=0.55, color=SERIES[1], zorder=3,
-            label="trace (lower)")
-    ax.barh(ys, comp, height=0.55, left=lower, color=SERIES[0], zorder=3,
-            label="XLA+Mosaic compile")
-    for y, s in zip(ys, order):
-        total = latest[s].get("lower_s", 0.0) + latest[s]["compile_s"]
-        ax.annotate(f"{total:.1f} s", (total, y), xytext=(4, 0),
-                    textcoords="offset points", va="center", color=TEXT,
-                    fontsize=8)
-    ax.set_yticks(list(ys), order)
-    ax.invert_yaxis()
-    _style(ax, "seconds (cold, persistent cache off)", "",
-           "Cold-compile breakdown by program layer")
-    ax.legend(frameon=False, fontsize=8, labelcolor=TEXT)
-    fig.tight_layout()
-    fig.savefig(out)
-    plt.close(fig)
-    return True
-
-
 def plot_headline(rows, out):
     recs = [r for r in rows if r.get("metric", "").startswith("qp_solves")]
     if not recs:
@@ -192,41 +134,8 @@ def plot_headline(rows, out):
     return True
 
 
-def plot_horizon(rows, out):
-    """Round-4 horizon scaling (ab_round4.jsonl phase E): ms vs T per
-    kernel variant, including the removed bcr's losing line as the
-    recorded evidence."""
-    recs = [r for r in rows
-            if r.get("phase") == "E_horizon" and "ms" in r]
-    if not recs:
-        return False
-    latest = {}
-    for r in recs:
-        latest[(r["variant"], r["T"])] = r
-    variants = sorted({k[0] for k in latest})
-    fig, ax = plt.subplots(figsize=(6, 4), dpi=150)
-    for i, v in enumerate(variants):
-        pts = sorted((k[1], rec["ms"]) for k, rec in latest.items()
-                     if k[0] == v)
-        xs, ys = zip(*pts)
-        label = v + (" (removed)" if v.startswith("bcr") else "")
-        ax.plot(xs, ys, "-o", color=SERIES[i % len(SERIES)], linewidth=2,
-                markersize=5, label=label, zorder=3)
-        ax.annotate(label, (xs[-1], ys[-1]), xytext=(6, 0),
-                    textcoords="offset points", color=TEXT, fontsize=8,
-                    va="center")
-    ax.set_xticks(sorted({k[1] for k in latest}))
-    ax.set_xlim(right=max(k[1] for k in latest) * 1.35)
-    _style(ax, "horizon T (knot points)", "ms per 20-iteration solve",
-           "Horizon scaling at batch 1024 (round 4)")
-    fig.tight_layout()
-    fig.savefig(out)
-    plt.close(fig)
-    return True
-
-
 def plot_training(rows, out):
-    """Round-4 on-device ARS training: learning curve per batch size with
+    """On-device ARS training: learning curve per batch size with
     the measured env-steps/s in the labels (train_rl_mpc_tpu.jsonl)."""
     runs = []  # (num_envs, mass_error, matrix?, [(iter, ret)], rate)
     cur, cur_mass, cur_mat = [], 1.0, False
@@ -283,10 +192,7 @@ def main():
     made = []
     for name, fn, src in (
         ("sweep.png", plot_sweep, "bench_sweep.jsonl"),
-        ("weak_scaling.png", plot_weak_scaling, "bench_mesh.jsonl"),
-        ("compile_breakdown.png", plot_compile, "ab_compile.jsonl"),
         ("headline_history.png", plot_headline, "bench.jsonl"),
-        ("horizon.png", plot_horizon, "ab_round4.jsonl"),
         ("training.png", plot_training, "train_rl_mpc_tpu.jsonl"),
     ):
         if fn(_read(os.path.join(d, src)), os.path.join(plots, name)):
